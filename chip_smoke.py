@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
-"""Smoke run of crfr_torch on one CUDA card: kernels, embed, verify, serve.
+"""Smoke run of crfr_torch on one CUDA card: kernels, embed, verify,
+gallery, serve.
 
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
 
 1. device: the card, its power limit (nvidia-smi), and the kernel build time;
-2. kernels: every CUDA kernel of the embed path, built from the sources in
-   this checkout, held against its plain PyTorch version (TF32 off) and a
-   float64 product at the main path's shapes, and timed beside its bound,
-   the plain version and one library call (``torch.einsum``) as yardstick.
-   The bound counts the flops the function needs through its banded
-   factors (``needed_flops``), not the dense products the kernel does;
+2. kernels: every CUDA kernel of the port, built from the sources in this
+   checkout, held against its plain PyTorch version at the main paths'
+   shapes, and timed beside its bound, the plain version and one library
+   call as yardstick. The preprocessing kernels are held against a float64
+   product too (TF32 off), with the bound counting the flops the function
+   needs through its banded factors (``needed_flops``), not the dense
+   products the kernel does. ``bank_tilemax`` must equal its plain version
+   exactly (serving shape, ragged bank, 7 probes, D=64), and its yardstick
+   is ``torch._int_mm``, the int8 product alone;
 3. embed: the main path, ``build_embed_pipeline("ir_50")`` at B=256 on
    random uint8 images (IR-50 in bf16, weights from seed 0), with the
    launch counters reset just before one call and read just after; its
@@ -19,8 +23,23 @@ Phases, each printing one JSON line:
 4. verify: ``make_extract_fn`` on HR images and their 16 px probes, then the
    10-fold protocol on the card, which must equal the same protocol run on
    CPU tensors for the same distances;
-5. serve: ``make_server`` with ``build_serving_fn(degrade_to=16)`` at static
-   batch 64, three concurrent ``/embed`` requests and ``/healthz``.
+5. gallery: the int8 identification path on a 2^20 x 512 bank built with
+   ``quantize_bank`` (in row chunks on threads) and ``to_device()`` from
+   seeded unit rows, 256 probes
+   that are noisy copies of planted rows: ``topk_matches_bank(k=10)`` with
+   the CUDA default (the fused path through ``bank_tilemax``, launch counter
+   reset just before and read just after), held against ``fused=False``
+   (labels equal outside groups of equal scores, scores within 1e-6), top-1
+   the planted row, ``closed_set_identification`` rank-1 = 1.0; then one
+   256-probe scan timed on each path (CUDA events, median of 5);
+6. serve: ``make_server`` with ``build_serving_fn(degrade_to=16)`` at static
+   batch 64 and a ``ServingBank`` of one 65,536-row slab: three concurrent
+   ``/embed`` requests, ``/healthz``, ``/match`` with pixels (top-1 equal to
+   a direct ``topk_matches_bank`` on the ``/embed`` rows), ``/enroll`` of
+   those pixels (``/match`` finds them), ``/remove`` (they are gone), and
+   ``/gallery`` equal to ``snapshot()``. The preprocessing launches are
+   counted over the three ``/embed`` requests alone, and each ``/match``
+   must launch ``bank_tilemax`` exactly once, counted from 0 just before it.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the exit code is
@@ -43,7 +62,9 @@ import torch
 
 PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
+PEAK_INT8_OPS = 1979e12          # H100 SXM int8 tensor cores, dense
 B, S, LOW = 256, 112, 16
+BANK_M, BANK_D, BANK_K = 1 << 20, 512, 10
 
 
 def emit(obj) -> None:
@@ -63,9 +84,25 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(in_bytes: int, out_bytes: int, flops: int) -> tuple[float, str]:
+def event_ms(fn, repeats: int = 5) -> tuple[float, list[float]]:
+    """Median device time of one call, each timed alone with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), times
+
+
+def bound(in_bytes: int, out_bytes: int, ops: int,
+          peak_ops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_F32_FLOPS
+    t_ops = ops / peak_ops
     return 1e3 * max(t_bytes, t_ops), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -159,6 +196,52 @@ def phase_kernels(fp) -> list[dict]:
          "replaces": "crfr/ops/fused_pallas.py:93", "on_main_path": False,
          "cases": resize, **_headline(resize[0])},
     ]
+
+
+def tilemax_case(bs, pq, q, sc, valid, timed: bool) -> dict:
+    """``bank_tilemax`` against its plain version, which it must equal
+    exactly; times when ``timed``."""
+    got = bs.bank_tilemax(pq, q, sc, valid)
+    want = bs.bank_tilemax_reference(pq, q, sc, valid)
+    torch.cuda.synchronize()
+    (n, d), m = pq.shape, q.shape[0]
+    if got.shape != (n, -(-m // 128)) or not torch.equal(got, want):
+        raise AssertionError(f"bank_tilemax N={n} M={m} D={d}: differs from its plain "
+                             f"version, max_abs_err {(got - want).abs().max().item()}")
+    case = {"n": n, "m": m, "d": d, "tile": 128, "invalid_rows": int((~valid).sum()),
+            "max_abs_err": (got - want).abs().max().item(), "tolerance": 0.0}
+    if timed:
+        in_bytes = pq.numel() + q.numel() + 4 * m + m      # int8, int8, f32 scales, bool mask
+        out_bytes = got.numel() * 4
+        ops = 2 * n * m * d
+        bms, by = bound(in_bytes, out_bytes, ops, PEAK_INT8_OPS)
+        qt = q.t()
+        case.update(
+            ms=cuda_ms(lambda: bs.bank_tilemax(pq, q, sc, valid)),
+            plain_ms=cuda_ms(lambda: bs.bank_tilemax_reference(pq, q, sc, valid), iters=5),
+            library_ms=cuda_ms(lambda: torch._int_mm(pq, qt)),
+            library_call="torch._int_mm(pq, q.t()): the int8 product alone, "
+                         "without scale, mask or max",
+            bound_ms=bms, bound_by=by, ops=ops, bytes=in_bytes + out_bytes)
+    return case
+
+
+def phase_kernels_bank(bs) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(6)
+    pq = torch.randint(-127, 128, (B, BANK_D), generator=g, device="cuda", dtype=torch.int8)
+    q = torch.randint(-127, 128, (BANK_M, BANK_D), generator=g, device="cuda",
+                      dtype=torch.int8)
+    sc = torch.rand(BANK_M, generator=g, device="cuda") * 1e-2
+    valid = torch.rand(BANK_M, generator=g, device="cuda") >= 0.01
+    ragged = BANK_M - 77
+    q64 = torch.randint(-127, 128, (BANK_M, 64), generator=g, device="cuda", dtype=torch.int8)
+    cases = [tilemax_case(bs, pq, q, sc, valid, timed=True),
+             tilemax_case(bs, pq, q[:ragged], sc[:ragged], valid[:ragged], timed=False),
+             tilemax_case(bs, pq[:7].contiguous(), q, sc, valid, timed=False),
+             tilemax_case(bs, pq[:, :64].contiguous(), q64, sc, valid, timed=False)]
+    return {"name": "bank_tilemax", "route": "cuda", "source": "crfr_torch/ops/csrc/bank_scan.cu",
+            "replaces": "crfr/ops/bank_scan.py:51", "on_main_path": True,
+            "cases": cases, **_headline(cases[0])}
 
 
 def _headline(case: dict) -> dict:
@@ -257,8 +340,87 @@ def phase_verify(fp, model32) -> dict:
             "card_equals_cpu": True}
 
 
-def phase_serve(fp, model32) -> dict:
+def _same_outside_ties(a_s, a_l, b_s, b_l) -> bool:
+    """Labels equal wherever the score is not shared with a neighbour."""
+    tie = np.zeros(a_s.shape, bool)
+    tie[:, 1:] |= a_s[:, 1:] == a_s[:, :-1]
+    tie[:, :-1] |= a_s[:, :-1] == a_s[:, 1:]
+    return bool(np.array_equal(a_l[~tie], b_l[~tie]))
+
+
+def unit_rows(seed: int, m: int) -> np.ndarray:
+    """(m, 512) f32 unit rows from a seed, drawn on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((m, BANK_D), generator=g, device="cuda")
+    return torch.nn.functional.normalize(x, dim=1).cpu().numpy()
+
+
+def build_bank(rows: np.ndarray):
+    """``quantize_bank(rows)`` in row chunks on threads (numpy releases the
+    GIL): rows quantize independently, so the chunks concatenate to the
+    same bank bit for bit."""
+    from crfr_torch.eval.bank import QuantBank, quantize_bank
+
+    step = -(-len(rows) // 8)
+    with ThreadPoolExecutor(8) as ex:
+        parts = list(ex.map(lambda i: quantize_bank(rows[i:i + step],
+                                                    np.arange(i, min(i + step, len(rows)))),
+                            range(0, len(rows), step)))
+    return QuantBank(q=np.concatenate([b.q for b in parts]),
+                     scale=np.concatenate([b.scale for b in parts]),
+                     labels=np.concatenate([b.labels for b in parts]))
+
+
+def phase_gallery(bs) -> dict:
+    from crfr_torch.eval.bank import streaming_topk_q, topk_matches_bank
+    from crfr_torch.eval.identification import _auto_block, closed_set_identification
+
+    rng = np.random.default_rng(5)
+    t0 = time.perf_counter()
+    rows = unit_rows(5, BANK_M)
+    bank = build_bank(rows).to_device("cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    planted = rng.choice(BANK_M, B, replace=False)
+    probes = (rows[planted] + rng.normal(0, 0.02, (B, BANK_D))).astype(np.float32)
+    del rows
+
+    bs.bank_tilemax.launches = 0
+    s_f, l_f = topk_matches_bank(probes, bank, k=BANK_K)         # the CUDA default
+    torch.cuda.synchronize()
+    launches = bs.bank_tilemax.launches
+    s_s, l_s = topk_matches_bank(probes, bank, k=BANK_K, fused=False)
+    err = float(np.abs(s_f - s_s).max())
+    if launches < 1:
+        raise AssertionError("gallery: the default path did not launch bank_tilemax")
+    if s_f.shape != (B, BANK_K) or not np.isfinite(s_f).all():
+        raise AssertionError(f"gallery: bad scores {s_f.shape}")
+    if not (err <= 1e-6 and _same_outside_ties(s_s, l_s, s_f, l_f)):
+        raise AssertionError(f"gallery: fused path differs from the scan (scores {err})")
+    if not np.array_equal(l_f[:, 0], planted):
+        raise AssertionError(f"gallery: top-1 is not the planted row for "
+                             f"{int((l_f[:, 0] != planted).sum())} probes")
+    closed = closed_set_identification(probes, bank, planted, None)
+    if closed.rank1 != 1.0:
+        raise AssertionError(f"gallery: closed-set rank-1 {closed.rank1}")
+
+    p = torch.from_numpy(probes).cuda()
+    block = _auto_block(0, B)
+    fused_ms, fused_runs = event_ms(
+        lambda: bs.bank_topk_fused(p, bank.q, bank.scale, bank.labels, k=BANK_K))
+    scan_ms, scan_runs = event_ms(
+        lambda: streaming_topk_q(p, bank.q, bank.scale, bank.labels, k=BANK_K, block=block))
+    return {"phase": "gallery", "bank_rows": BANK_M, "d": BANK_D, "probes": B, "k": BANK_K,
+            "bank_build_s": build_s, "launches": {"bank_tilemax": launches},
+            "fused_vs_scan_max_abs_score_err": err, "top1_is_planted": True,
+            "closed_set_rank1": closed.rank1, "top1_score_median": float(np.median(s_f[:, 0])),
+            "fused_ms": fused_ms, "fused_ms_runs": fused_runs, "scan_ms": scan_ms,
+            "scan_ms_runs": scan_runs, "scan_block": block}
+
+
+def phase_serve(fp, bs, model32) -> dict:
     from crfr_torch.device import strict_fp32
+    from crfr_torch.eval.bank import ServingBank, quantize_bank, topk_matches_bank
     from crfr_torch.serve import build_serving_fn
     from crfr_torch.serve_http import make_server
 
@@ -266,29 +428,61 @@ def phase_serve(fp, model32) -> dict:
     meta = {"batch": 64, "image_size": S, "input_dtype": "uint8", "backbone": "ir_50"}
     rng = np.random.default_rng(4)
     reqs = [rng.integers(0, 256, (k, S, S, 3)).astype(np.uint8) for k in (1, 5, 100)]
+    faces = rng.integers(0, 256, (8, S, S, 3)).astype(np.uint8)
+    bank = ServingBank.from_bank(quantize_bank(unit_rows(4, 60000)), device="cuda")
+    if bank.capacity != ServingBank.SLAB:
+        raise AssertionError(f"serve: capacity {bank.capacity}, want one slab")
 
-    def post(url, arr):
-        buf = io.BytesIO()
-        np.save(buf, arr, allow_pickle=False)
-        req = urllib.request.Request(url, data=buf.getvalue(), method="POST")
+    def post(url, arr=None):
+        data = b""
+        if arr is not None:
+            buf = io.BytesIO()
+            np.save(buf, arr, allow_pickle=False)
+            data = buf.getvalue()
+        req = urllib.request.Request(url, data=data, method="POST")
         with urllib.request.urlopen(req, timeout=120) as r:
-            return np.load(io.BytesIO(r.read()), allow_pickle=False)
+            body = r.read()
+        return json.loads(body) if r.headers["Content-Type"] == "application/json" \
+            else np.load(io.BytesIO(body), allow_pickle=False)
 
-    fp.fused_degrade_normalize.launches = 0
+    match_launches = []
+
+    def match(url):
+        """One ``/match`` with pixels; its own ``bank_tilemax`` launches,
+        counted from 0 just before the request to its answer."""
+        bs.bank_tilemax.launches = 0
+        out = post(url + "/match?k=5", faces)
+        match_launches.append(bs.bank_tilemax.launches)
+        return out
+
     with strict_fp32():
-        srv = make_server(fn, meta, host="127.0.0.1", port=0, device="cuda")
+        srv = make_server(fn, meta, host="127.0.0.1", port=0, bank=bank, device="cuda")
         th = threading.Thread(target=srv.serve_forever, daemon=True)
         th.start()
         url = f"http://127.0.0.1:{srv.server_address[1]}"
         try:
+            fp.fused_degrade_normalize.launches = 0
             t0 = time.perf_counter()
             with ThreadPoolExecutor(3) as ex:
                 futs = [ex.submit(post, url + "/embed", r) for r in reqs]
                 outs = [f.result(timeout=300) for f in futs]
             wall = time.perf_counter() - t0
+            embed_launches = fp.fused_degrade_normalize.launches
             with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
                 health = json.loads(r.read())
             direct = [fn(r).cpu().numpy() for r in reqs]
+
+            emb = post(url + "/embed", faces)
+            _, direct_labels = topk_matches_bank(emb, bank, k=5)
+            matched = match(url)
+            top1 = [m["labels"][0] for m in matched["matches"]]
+            enrolled = post(url + "/enroll", faces)
+            found = match(url)
+            removed = post(url + f"/remove?labels={','.join(map(str, enrolled['labels']))}")
+            after = match(url)
+            with urllib.request.urlopen(url + "/gallery", timeout=120) as r:
+                z = np.load(io.BytesIO(r.read()))
+            snap = bank.snapshot()
         finally:
             srv.shutdown()
             srv.server_close()
@@ -301,10 +495,33 @@ def phase_serve(fp, model32) -> dict:
         errs.append(float(np.abs(got - want).max() / np.abs(want).max()))
     if max(errs) > 1e-3 or not health["ok"] or th.is_alive():
         raise AssertionError(f"serve: rel errors {errs}, health {health}")
+    if not (health["mutable"] and health["gallery"] == 60000):
+        raise AssertionError(f"serve: health {health}")
+    if top1 != direct_labels[:, 0].tolist():
+        raise AssertionError(f"serve: /match top-1 {top1} != direct "
+                             f"{direct_labels[:, 0].tolist()}")
+    new = enrolled["labels"]
+    if [m["labels"][0] for m in found["matches"]] != new:
+        raise AssertionError(f"serve: /match after /enroll {found['matches']} != {new}")
+    if removed != {"removed": len(new), "gallery": 60000} or \
+            any(set(m["labels"]) & set(new) for m in after["matches"]):
+        raise AssertionError(f"serve: /remove {removed}, then /match {after['matches']}")
+    if not all(np.array_equal(z[f], getattr(snap, f)) for f in ("q", "scale", "labels")):
+        raise AssertionError("serve: /gallery differs from snapshot()")
+    if embed_launches < 1:
+        raise AssertionError("serve: /embed did not launch the preprocessing kernel")
+    if match_launches != [1, 1, 1]:
+        raise AssertionError(f"serve: the three /match requests launched bank_tilemax "
+                             f"{match_launches} times, want once each")
     return {"phase": "serve", "rows": [len(r) for r in reqs], "static_batch": 64,
             "dispatches": health["dispatches"], "max_rel_err_vs_direct": errs,
-            "launches": {"fused_degrade_normalize": fp.fused_degrade_normalize.launches},
-            "wall_s_three_requests": wall}
+            "launches": {"fused_degrade_normalize": embed_launches,
+                         "bank_tilemax": sum(match_launches)},
+            "bank_tilemax_launches_per_match": match_launches,
+            "wall_s_three_requests": wall, "gallery_capacity": bank.capacity,
+            "match_top1_equals_direct": True, "enrolled_labels": new,
+            "enrolled_top1_score_min": min(m["scores"][0] for m in found["matches"]),
+            "removed": removed["removed"], "gallery_equals_snapshot": True}
 
 
 def main() -> int:
@@ -312,6 +529,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from crfr_torch.ops import _build
+    from crfr_torch.ops import bank_scan as bs
     from crfr_torch.ops import fused_preprocess as fp
 
     t_start = time.perf_counter()
@@ -325,14 +543,22 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0})
 
-    kernels = phase_kernels(fp)
+    kernels = phase_kernels(fp) + [phase_kernels_bank(bs)]
     emit({"phase": "kernels", "cases": sum(len(k["cases"]) for k in kernels)})
     embed, state = phase_embed(fp)
     emit({**embed, "card": smi})
-    for k in kernels:
-        k["launches"] = embed["launches"][k["name"]]
     emit(phase_verify(fp, state["model32"]))
-    emit(phase_serve(fp, state["model32"]))
+    gallery = phase_gallery(bs)
+    emit({**gallery, "card": smi})
+    serve = phase_serve(fp, bs, state["model32"])
+    emit(serve)
+    # launches on each kernel's own main path: embed for the preprocessing
+    # kernels, the gallery scan for bank_tilemax
+    paths = {"embed": embed["launches"], "gallery": gallery["launches"],
+             "serve": serve["launches"]}
+    for k in kernels:
+        k["launches"] = (gallery if k["name"] == "bank_tilemax" else embed)["launches"][k["name"]]
+        k["launches_by_path"] = {p: v[k["name"]] for p, v in paths.items() if k["name"] in v}
     emit({"kernels": kernels, "card": smi, "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,16 +1,21 @@
-"""Where the embed batch's device time goes: ``trace_embed`` of
-crfr/bench/xprof_check.py, with torch.profiler in place of jax.profiler.
+"""Where the device time goes: ``trace_embed`` of crfr/bench/xprof_check.py,
+with torch.profiler in place of jax.profiler, and ``trace_gallery`` for
+the int8 gallery scan.
 
     python -m crfr_torch.bench.xprof_check [--batch 256] [--steps 10]
+    python -m crfr_torch.bench.xprof_check --path gallery [--batch 256]
 
-Runs ``steps`` back-to-back calls of the bf16 embed pipeline
-(``bench.throughput.build_embed_pipeline``) on one CUDA card, once
+``embed`` runs ``steps`` back-to-back calls of the bf16 embed pipeline
+(``bench.throughput.build_embed_pipeline``); ``gallery`` runs ``steps``
+256-probe top-10 scans of a 2^20 x 512 int8 bank on each path, the fused
+three-phase top-k (``ops.bank_scan.bank_topk_fused``, the CUDA default) and
+the scan (``eval.bank.streaming_topk_q``). Each runs on one CUDA card, once
 untraced and once under the profiler, warmup outside both, and prints one
-JSON line: wall ms per batch (untraced and traced), device busy ms per
-batch (the union of kernel intervals in the trace), the idle share of the
-traced window, device time per batch by kernel group, and the heaviest
-kernels by name. Kernels are read from the profiler's Chrome trace (events
-of category ``kernel``); a trace with none raises.
+JSON line: wall ms per call (untraced and traced), device busy ms per call
+(the union of kernel intervals in the trace), the idle share of the traced
+window, device time per call by kernel group, and the heaviest kernels by
+name. Kernels are read from the profiler's Chrome trace (events of category
+``kernel``); a trace with none raises.
 """
 
 from __future__ import annotations
@@ -31,6 +36,9 @@ from crfr_torch.device import resolve_device
 # kernel group ← substrings of the kernel's name, tried in this order
 _GROUPS = (
     ("preprocess", ("resample_normalize",)),
+    ("bank_tilemax", ("bank_tilemax",)),
+    ("sort", ("sort",)),
+    ("gather", ("gather", "index")),
     ("conv", ("conv", "fprop", "implicit", "dgrad", "wgrad")),
     ("batch_norm", ("batch_norm", "batchnorm", "bn_fw", "bn_")),
     ("gemm", ("gemm", "gemv")),
@@ -56,27 +64,24 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def trace_embed(batch: int = 256, steps: int = 10, backbone: str = "ir_50",
-                degrade_to: int = 16, image_size: int = 112, top: int = 12,
-                device: str | torch.device = "cuda", seed: int = 0) -> dict:
-    dev = resolve_device(device)
-    if dev.type != "cuda":
-        raise ValueError("trace_embed measures the CUDA device")
-    embed = build_embed_pipeline(backbone, degrade_to, image_size, device=dev, seed=seed)
-    g = torch.Generator(device=dev).manual_seed(seed)
-    x = torch.randint(0, 256, (batch, image_size, image_size, 3), generator=g,
-                      device=dev, dtype=torch.uint8)
+def _card() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
 
+
+def _profile(call, steps: int, dev: torch.device, top: int) -> dict:
+    """Untraced and traced windows of ``steps`` calls, warmup outside both."""
     def window() -> float:
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         for _ in range(steps):
-            embed(x)
+            call()
         torch.cuda.synchronize(dev)
         return 1e3 * (time.perf_counter() - t0) / steps
 
     for _ in range(3):
-        embed(x)
+        call()
     untraced_ms = window()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_ms = window()
@@ -98,31 +103,92 @@ def trace_embed(batch: int = 256, steps: int = 10, backbone: str = "ir_50",
         groups[_group(e["name"])] = groups.get(_group(e["name"]), 0.0) + e["dur"]
     busy_ms = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in kernels]) / 1e3 / steps
     heaviest = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    return {
+        "wall_ms": untraced_ms,
+        "traced_wall_ms": traced_ms,
+        "device_busy_ms": busy_ms,
+        "idle_share_traced": 1.0 - busy_ms / traced_ms,
+        "kernel_launches": len(kernels) / steps,
+        "group_ms": {k: v / 1e3 / steps for k, v in
+                     sorted(groups.items(), key=lambda kv: -kv[1])},
+        "heaviest": [{"name": n[:120], "ms": t / 1e3 / steps, "calls": c / steps}
+                     for n, (t, c) in heaviest],
+    }
+
+
+def _cuda(device) -> torch.device:
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError("the traces measure the CUDA device")
+    return dev
+
+
+def trace_embed(batch: int = 256, steps: int = 10, backbone: str = "ir_50",
+                degrade_to: int = 16, image_size: int = 112, top: int = 12,
+                device: str | torch.device = "cuda", seed: int = 0) -> dict:
+    """One embed batch per call; keys per batch, as crfr's trace names them."""
+    dev = _cuda(device)
+    embed = build_embed_pipeline(backbone, degrade_to, image_size, device=dev, seed=seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(0, 256, (batch, image_size, image_size, 3), generator=g,
+                      device=dev, dtype=torch.uint8)
+    r = _profile(lambda: embed(x), steps, dev, top)
     return {
         "backbone": backbone, "batch": batch, "steps": steps, "degrade_to": degrade_to,
-        "card": smi,
-        "wall_ms_per_batch": untraced_ms,
-        "traced_wall_ms_per_batch": traced_ms,
-        "device_busy_ms_per_batch": busy_ms,
-        "idle_share_traced": 1.0 - busy_ms / traced_ms,
-        "kernel_launches_per_batch": len(kernels) / steps,
-        "group_ms_per_batch": {k: v / 1e3 / steps for k, v in
-                               sorted(groups.items(), key=lambda kv: -kv[1])},
-        "heaviest": [{"name": n[:120], "ms_per_batch": t / 1e3 / steps,
-                      "calls_per_batch": c / steps} for n, (t, c) in heaviest],
+        "card": _card(),
+        "wall_ms_per_batch": r["wall_ms"],
+        "traced_wall_ms_per_batch": r["traced_wall_ms"],
+        "device_busy_ms_per_batch": r["device_busy_ms"],
+        "idle_share_traced": r["idle_share_traced"],
+        "kernel_launches_per_batch": r["kernel_launches"],
+        "group_ms_per_batch": r["group_ms"],
+        "heaviest": [{"name": h["name"], "ms_per_batch": h["ms"],
+                      "calls_per_batch": h["calls"]} for h in r["heaviest"]],
     }
+
+
+def trace_gallery(probes: int = 256, rows: int = 1 << 20, dim: int = 512, k: int = 10,
+                  steps: int = 10, top: int = 8, device: str | torch.device = "cuda",
+                  seed: int = 0) -> dict:
+    """One ``probes``-probe top-k scan of a ``rows`` x ``dim`` int8 bank per
+    call, on the fused path and on the scan. The bank is quantized on the
+    card with the probe recipe, which is the host bank recipe's twin."""
+    from crfr_torch.eval.bank import quantize_probes, streaming_topk_q
+    from crfr_torch.eval.identification import _auto_block
+    from crfr_torch.ops.bank_scan import bank_topk_fused
+
+    dev = _cuda(device)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    emb = torch.randn((rows, dim), generator=g, device=dev)
+    q, scale = quantize_probes(emb)
+    labels = torch.arange(rows, device=dev)
+    planted = torch.randperm(rows, generator=g, device=dev)[:probes]
+    p = emb[planted] / emb[planted].norm(dim=1, keepdim=True) \
+        + 0.02 * torch.randn((probes, dim), generator=g, device=dev)
+    del emb
+    block = _auto_block(0, probes)
+    calls = {"fused": lambda: bank_topk_fused(p, q, scale, labels, k=k),
+             "scan": lambda: streaming_topk_q(p, q, scale, labels, k=k, block=block)}
+    out = {"probes": probes, "rows": rows, "dim": dim, "k": k, "steps": steps,
+           "scan_block": block, "card": _card()}
+    for name, call in calls.items():
+        _, lab = call()
+        if not torch.equal(lab[:, 0], planted):
+            raise AssertionError(f"{name}: top-1 is not the planted row")
+        out[name] = _profile(call, steps, dev, top)
+    return out
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--path", choices=("embed", "gallery"), default="embed")
+    ap.add_argument("--batch", type=int, default=256, help="images or probes per call")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--backbone", default="ir_50")
     args = ap.parse_args()
-    print(json.dumps(trace_embed(args.batch, args.steps, args.backbone)), flush=True)
+    out = (trace_embed(args.batch, args.steps, args.backbone) if args.path == "embed"
+           else trace_gallery(args.batch, steps=args.steps))
+    print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

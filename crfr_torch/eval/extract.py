@@ -13,7 +13,7 @@ from typing import Callable
 
 import torch
 
-from crfr_torch.device import resolve_device
+from crfr_torch.device import refuse_mesh, resolve_device
 from crfr_torch.ops.fused_preprocess import fused_degrade_normalize
 from crfr_torch.ops.normalize import normalize
 
@@ -30,13 +30,13 @@ def make_extract_fn(backbone_apply: Callable, degrade_to: int | None = None,
     S = ``image_size``. ``backbone_apply``: normalized NHWC pixels →
     embeddings, or ``backbone_apply(state, x)`` with ``state_fn() → state``
     to embed with the caller's current weights. Runs under
-    ``torch.inference_mode``. ``sr_apply`` and ``mesh`` are not ported yet,
-    nor is ``extract_embeddings`` (it needs the image-path input pipeline).
+    ``torch.inference_mode``. ``sr_apply`` and a ``mesh`` of more than one
+    device are not ported yet, nor is ``extract_embeddings`` (it needs the
+    image-path input pipeline).
     """
     if sr_apply is not None:
         raise NotImplementedError("sr_apply (hallucinated probes) is not ported yet")
-    if mesh is not None:
-        raise NotImplementedError("mesh (sharded extraction) is not ported yet")
+    refuse_mesh(mesh, "sharded extraction")
     if flip_fusion not in ("sum", "concat"):
         raise ValueError(f"unknown flip fusion {flip_fusion!r}")
     dev = resolve_device(device)

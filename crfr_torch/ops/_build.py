@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``crfr_torch/ops/csrc/`` have a plain C interface. At
-first use they are compiled with ``nvcc`` for ``sm_90a`` into one shared
-library under ``build/crfr_torch_kernels/`` of the checkout, named by a
-hash of the sources and flags, and loaded with ``ctypes``. This keeps
+first use each is compiled with its own ``nvcc`` for ``sm_90a``, all at
+once, and the objects are linked into one shared library under
+``build/crfr_torch_kernels/`` of the checkout, named by a hash of the
+sources and flags, and loaded with ``ctypes``. This keeps
 PyTorch's headers out of the build: a source that includes them takes
 minutes to compile, a plain one seconds. A failed build raises; nothing
 falls back to the plain versions.
@@ -19,10 +20,10 @@ import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "fused_preprocess.cu",)
+SOURCES = (_CSRC / "fused_preprocess.cu", _CSRC / "bank_scan.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "crfr_torch_kernels"
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -43,9 +44,39 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.crfr_resample_normalize.restype = i
     lib.crfr_resample_max_hw.argtypes = []
     lib.crfr_resample_max_hw.restype = i
+    lib.crfr_bank_tilemax.argtypes = [p, p, p, p, p, i, i, i, i, p]
+    lib.crfr_bank_tilemax.restype = i
+    lib.crfr_bank_tilemax_tile.argtypes = []
+    lib.crfr_bank_tilemax_tile.restype = i
     lib.crfr_error_string.argtypes = [i]
     lib.crfr_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with the output of the first failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+
+
+def _compile_and_link(so: Path) -> None:
+    """One nvcc per source, all started together, then one link."""
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [so.with_name(f"{tag}.{src.stem}.o") for src in SOURCES]
+    tmp = so.with_name(f"{tag}.tmp")
+    nvcc = _nvcc()
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                  for src, o in zip(SOURCES, objs)])
+        _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, so)             # atomic: a concurrent build is harmless
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
 
 
 def load_library() -> ctypes.CDLL:
@@ -60,13 +91,7 @@ def load_library() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"libcrfr_torch_kernels_{digest.hexdigest()[:16]}.so"
         if not so.exists():
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({res.returncode}): "
-                                   f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-            os.replace(tmp, so)         # atomic: a concurrent build is harmless
+            _compile_and_link(so)
         _lib = _declare(ctypes.CDLL(str(so)))
         return _lib
 

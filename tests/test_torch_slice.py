@@ -9,6 +9,7 @@ import json
 import subprocess
 import sys
 import threading
+import types
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -73,6 +74,11 @@ def test_extract_refuses_unported_options(twins):
         make_extract_fn(tm, degrade_to=LOW, sr_apply=lambda v: v, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         make_extract_fn(tm, mesh=object(), device="cpu")
+    x = _faces(2, B)                       # a one-device mesh: the single-device path
+    np.testing.assert_array_equal(
+        make_extract_fn(tm, degrade_to=LOW, image_size=SIZE, device="cpu",
+                        mesh=types.SimpleNamespace(size=lambda: 1))(x).numpy(),
+        make_extract_fn(tm, degrade_to=LOW, image_size=SIZE, device="cpu")(x).numpy())
     with pytest.raises(ValueError, match=r"expected \(B, 32, 32, 3\)"):
         make_extract_fn(tm, image_size=SIZE, device="cpu")(np.zeros((1, 16, 16, 3), np.uint8))
 
@@ -179,7 +185,7 @@ def test_import_hygiene():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 22
 
 
 def test_trace_helpers():
@@ -204,13 +210,18 @@ def no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["extract", "serve", "server", "bench", "verify",
-                                   "device"])
+                                   "device", "bank_to_device", "serving_bank",
+                                   "server_bank", "match_bank", "match", "ijbc_pool"])
 def test_no_quiet_cpu(no_cuda, twins, entry):
     """With CUDA hidden, an entry point called without device='cpu' raises."""
     from crfr_torch.bench.throughput import build_embed_pipeline
     from crfr_torch.device import resolve_device
+    from crfr_torch.eval.bank import ServingBank, quantize_bank, topk_matches_bank
+    from crfr_torch.eval.identification import topk_matches
+    from crfr_torch.eval.ijbc import pool_templates
 
     _, tm = twins
+    bank = quantize_bank(np.eye(4, dtype=np.float32))
     calls = {
         "extract": lambda: make_extract_fn(tm),
         "serve": lambda: build_serving_fn(tm),
@@ -219,6 +230,12 @@ def test_no_quiet_cpu(no_cuda, twins, entry):
         "verify": lambda: evaluate_verification(np.ones((2, 4)), np.ones((2, 4)),
                                                 [True, False], n_folds=2),
         "device": lambda: resolve_device(),
+        "bank_to_device": lambda: bank.to_device(),
+        "serving_bank": lambda: ServingBank.from_bank(bank, slab=8),
+        "server_bank": lambda: make_server(lambda v: v, {"batch": 1}, bank=bank),
+        "match_bank": lambda: topk_matches_bank(np.eye(4, dtype=np.float32), bank, k=2),
+        "match": lambda: topk_matches(np.eye(4), np.eye(4), np.arange(4), k=2),
+        "ijbc_pool": lambda: pool_templates(np.eye(4), np.zeros(4, int), np.zeros(1, int), 1, 1),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
