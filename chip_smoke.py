@@ -14,8 +14,11 @@ Phases, each printing one JSON line:
    product too (TF32 off), with the bound counting the flops the function
    needs through its banded factors (``needed_flops``), not the dense
    products the kernel does. ``bank_tilemax`` must equal its plain version
-   exactly (serving shape, ragged bank, 7 probes, D=64), and its yardstick
-   is ``torch._int_mm``, the int8 product alone;
+   exactly (serving shape, ragged bank, 7 probes, D=64, D=48, one bank row,
+   and 300 probes at D=1024, which take three probe groups), its entry
+   carries the launch plan (registers, spill bytes, shared memory, CTAs,
+   probe groups), and its yardstick is ``torch._int_mm``, the int8 product
+   alone;
 3. embed: the main path, ``build_embed_pipeline("ir_50")`` at B=256 on
    random uint8 images (IR-50 in bf16, weights from seed 0), with the
    launch counters reset just before one call and read just after; its
@@ -28,7 +31,8 @@ Phases, each printing one JSON line:
    seeded unit rows, 256 probes
    that are noisy copies of planted rows: ``topk_matches_bank(k=10)`` with
    the CUDA default (the fused path through ``bank_tilemax``, launch counter
-   reset just before and read just after), held against ``fused=False``
+   reset just before and read just after: exactly one launch), held
+   against ``fused=False``
    (labels equal outside groups of equal scores, scores within 1e-6), top-1
    the planted row, ``closed_set_identification`` rank-1 = 1.0; then one
    256-probe scan timed on each path (CUDA events, median of 5);
@@ -82,6 +86,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 50) -> float:
+    """Host time of one call: what the caller's thread spends enqueueing it
+    (argument checks, tensor maps, launch), with the device still busy."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return us
 
 
 def event_ms(fn, repeats: int = 5) -> tuple[float, list[float]]:
@@ -218,6 +235,7 @@ def tilemax_case(bs, pq, q, sc, valid, timed: bool) -> dict:
         qt = q.t()
         case.update(
             ms=cuda_ms(lambda: bs.bank_tilemax(pq, q, sc, valid)),
+            host_us=host_us(lambda: bs.bank_tilemax(pq, q, sc, valid)),
             plain_ms=cuda_ms(lambda: bs.bank_tilemax_reference(pq, q, sc, valid), iters=5),
             library_ms=cuda_ms(lambda: torch._int_mm(pq, qt)),
             library_call="torch._int_mm(pq, q.t()): the int8 product alone, "
@@ -235,13 +253,25 @@ def phase_kernels_bank(bs) -> dict:
     valid = torch.rand(BANK_M, generator=g, device="cuda") >= 0.01
     ragged = BANK_M - 77
     q64 = torch.randint(-127, 128, (BANK_M, 64), generator=g, device="cuda", dtype=torch.int8)
+    q48 = torch.randint(-127, 128, (ragged, 48), generator=g, device="cuda", dtype=torch.int8)
+    wide = 1 << 16
+    pq1k = torch.randint(-127, 128, (300, 1024), generator=g, device="cuda", dtype=torch.int8)
+    q1k = torch.randint(-127, 128, (wide, 1024), generator=g, device="cuda", dtype=torch.int8)
     cases = [tilemax_case(bs, pq, q, sc, valid, timed=True),
              tilemax_case(bs, pq, q[:ragged], sc[:ragged], valid[:ragged], timed=False),
              tilemax_case(bs, pq[:7].contiguous(), q, sc, valid, timed=False),
-             tilemax_case(bs, pq[:, :64].contiguous(), q64, sc, valid, timed=False)]
+             tilemax_case(bs, pq[:, :64].contiguous(), q64, sc, valid, timed=False),
+             tilemax_case(bs, pq[:, :48].contiguous(), q48, sc[:ragged], valid[:ragged],
+                          timed=False),
+             tilemax_case(bs, pq, q[:1], sc[:1], valid[:1], timed=False),
+             tilemax_case(bs, pq1k, q1k, sc[:wide], valid[:wide], timed=True)]
+    for c in cases:
+        c["plan"] = bs.bank_tilemax_info(c["n"], c["m"], c["d"])
+    plan = {k: cases[0]["plan"][k] for k in ("registers", "spill_bytes", "smem_bytes", "ctas",
+                                              "probe_groups")}
     return {"name": "bank_tilemax", "route": "cuda", "source": "crfr_torch/ops/csrc/bank_scan.cu",
             "replaces": "crfr/ops/bank_scan.py:51", "on_main_path": True,
-            "cases": cases, **_headline(cases[0])}
+            "cases": cases, **_headline(cases[0]), **plan}
 
 
 def _headline(case: dict) -> dict:
@@ -391,8 +421,9 @@ def phase_gallery(bs) -> dict:
     launches = bs.bank_tilemax.launches
     s_s, l_s = topk_matches_bank(probes, bank, k=BANK_K, fused=False)
     err = float(np.abs(s_f - s_s).max())
-    if launches < 1:
-        raise AssertionError("gallery: the default path did not launch bank_tilemax")
+    if launches != 1:
+        raise AssertionError(f"gallery: the default call launched bank_tilemax {launches} "
+                             f"times, want exactly once")
     if s_f.shape != (B, BANK_K) or not np.isfinite(s_f).all():
         raise AssertionError(f"gallery: bad scores {s_f.shape}")
     if not (err <= 1e-6 and _same_outside_ties(s_s, l_s, s_f, l_f)):

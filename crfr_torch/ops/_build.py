@@ -48,6 +48,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.crfr_bank_tilemax.restype = i
     lib.crfr_bank_tilemax_tile.argtypes = []
     lib.crfr_bank_tilemax_tile.restype = i
+    lib.crfr_bank_tilemax_info.argtypes = [i, i, i, p]
+    lib.crfr_bank_tilemax_info.restype = i
     lib.crfr_error_string.argtypes = [i]
     lib.crfr_error_string.restype = ctypes.c_char_p
     return lib

@@ -2,7 +2,8 @@
 
 1. ``bank_tilemax``: for every probe and every tile of ``tile`` consecutive
    bank rows, the max of the int8 dot times the row's scale (invalid rows
-   −3e38), in one pass over the bank;
+   −3e38), in one launch that reads the bank once per group of up to 256
+   probes;
 2. the top k tiles per probe over those maxima;
 3. the k·tile rows of those tiles per probe, rescored exactly as the scan
    ``eval.bank.streaming_topk_q`` scores them (int8 dot · (probe scale · row
@@ -21,6 +22,8 @@ outside its ``pallas_call``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -73,8 +76,9 @@ def _check_launch(pq, q, scale, valid, tile) -> None:
 
 def bank_tilemax(pq: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                  valid: torch.Tensor, tile: int = 128) -> torch.Tensor:
-    """(N, ceil(M / tile)) f32 per-probe maxima over bank tiles, in one pass
-    over the bank. ``pq`` (N, D) int8 probes, ``q`` (M, D) int8 bank,
+    """(N, ceil(M / tile)) f32 per-probe maxima over bank tiles, in one
+    launch (one pass over the bank per group of up to 256 probes, 128 at
+    D > 512). ``pq`` (N, D) int8 probes, ``q`` (M, D) int8 bank,
     ``scale`` (M,) f32 row scales, ``valid`` (M,) bool. Invalid rows, and
     rows past M in the last tile, score −3e38. On the card ``tile`` is 128,
     D a multiple of 16 and at most 1024, every input contiguous."""
@@ -101,6 +105,21 @@ def bank_tilemax(pq: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
 
 
 bank_tilemax.launches = 0
+
+_INFO_KEYS = ("registers", "spill_bytes", "smem_bytes", "ctas", "probe_groups", "stages",
+              "threads", "probes_per_group")
+
+
+def bank_tilemax_info(n: int, m: int, d: int) -> dict:
+    """What one ``bank_tilemax`` call at (N, M, D) launches on the current
+    CUDA device: registers and local-memory (spill) bytes per thread as
+    compiled, dynamic shared memory, CTAs, probe groups (each streams the
+    bank once), ring stages, threads per CTA and probes per group."""
+    lib = _build.load_library()
+    info = (ctypes.c_int * len(_INFO_KEYS))()
+    _build.check(lib, lib.crfr_bank_tilemax_info(n, m, d, ctypes.addressof(info)),
+                 "bank_tilemax_info")
+    return dict(zip(_INFO_KEYS, info))
 
 
 def bank_topk_fused(probe_emb: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,

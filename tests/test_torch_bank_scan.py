@@ -35,7 +35,9 @@ def _t(*arrays):
 
 
 @pytest.mark.parametrize("n,m,d,invalid", [(32, 128, 64, 0.0), (64, 192, 128, 0.2),
-                                           (32, 100, 64, 0.1), (32, 61, 512, 0.5)])
+                                           (32, 100, 64, 0.1), (32, 61, 512, 0.5),
+                                           (257, 200, 64, 0.1), (32, 70, 48, 0.2),
+                                           (7, 1, 64, 0.0), (257, 1, 48, 0.0)])
 def test_tilemax_reference_equals_pallas_kernel(n, m, d, invalid):
     """The port's (N, T) maxima equal crfr's transposed (T, N) exactly. crfr
     needs M padded to its chunk; the port takes the ragged bank as it is."""

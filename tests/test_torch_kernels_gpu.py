@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from crfr_torch.device import strict_fp32
+from crfr_torch.ops import _build
 from crfr_torch.ops import bank_scan as bs
 from crfr_torch.ops import fused_preprocess as fp
 
@@ -75,11 +76,18 @@ def _bank(n, m, d, invalid, device, seed=0):
     return pq, q, sc, valid
 
 
-@pytest.mark.parametrize("d", [64, 512])
-@pytest.mark.parametrize("n", [1, 7, 256])
-@pytest.mark.parametrize("m,invalid", [(1 << 16, 0.0), ((1 << 16) - 77, 0.01), (300, 0.5)])
+# (M, share of invalid rows): one row, a ragged single tile, one whole tile,
+# a ragged few tiles, and banks of 512 tiles, ragged and whole
+_TILEMAX_M = [(1, 0.0), (127, 0.1), (128, 0.0), (300, 0.5), ((1 << 16) - 77, 0.01),
+              (1 << 16, 0.0)]
+
+
+@pytest.mark.parametrize("d", [16, 48, 64, 512, 1024])
+@pytest.mark.parametrize("n", [1, 7, 64, 255, 256, 257, 600])
+@pytest.mark.parametrize("m,invalid", _TILEMAX_M)
 def test_bank_tilemax_equals_plain(cuda, n, d, m, invalid):
-    """Exactly equal: s32 sums are exact, the score is one rounded multiply."""
+    """Exactly equal: s32 sums are exact, the score is one rounded multiply.
+    N > 256 (and N > 128 at D = 1024) takes more than one probe group."""
     pq, q, sc, valid = _bank(n, m, d, invalid, cuda, seed=n + d + m)
     before = bs.bank_tilemax.launches
     got = bs.bank_tilemax(pq, q, sc, valid)
@@ -88,6 +96,105 @@ def test_bank_tilemax_equals_plain(cuda, n, d, m, invalid):
     assert bs.bank_tilemax.launches == before + 1
     assert got.shape == (n, -(-m // 128)) and got.dtype == torch.float32
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [128, 256])
+def test_bank_tilemax_argmax_at_every_row_position(cuda, n):
+    """In each of 300 tiles every row position 0-127 holds the planted
+    maximum of exactly one probe of each 128-probe half (a permutation per
+    tile and half), and every row has its own scale, so each maximum's
+    value names its row: a wrong accumulator-to-row mapping shows here."""
+    tiles, d = 300, 256
+    g = torch.Generator().manual_seed(11)
+    q = torch.randint(-50, 51, (tiles * 128, d), generator=g, dtype=torch.int8)
+    pos = torch.stack([torch.randperm(128, generator=g) for _ in range(2 * tiles)])
+    planted = (torch.arange(tiles)[:, None] * 128 + pos.view(tiles, 2 * 128)).t()  # (256, tiles)
+    for j in range(2 * 128):
+        q[planted[j], j] = 100
+    pq = torch.zeros((n, d), dtype=torch.int8)
+    pq[torch.arange(n), torch.arange(n)] = 127
+    sc = 1.0 + torch.arange(tiles * 128, dtype=torch.float32) * 2.0 ** -20
+    valid = torch.ones(tiles * 128, dtype=torch.bool)
+    pq, q, sc, valid = (x.to(cuda) for x in (pq, q, sc, valid))
+    got = bs.bank_tilemax(pq, q, sc, valid)
+    want = bs.bank_tilemax_reference(pq, q, sc, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, 12700.0 * sc[planted[:n].to(cuda)])
+
+
+def test_bank_tilemax_all_invalid_tiles(cuda):
+    """A whole tile of invalid rows, and a ragged last tile whose rows are
+    all invalid, give -3e38."""
+    pq, q, sc, valid = _bank(256, 1000, 512, 0.0, cuda, seed=3)
+    valid[128:256] = False
+    valid[896:] = False
+    got = bs.bank_tilemax(pq, q, sc, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bs.bank_tilemax_reference(pq, q, sc, valid))
+    assert (got[:, 1] == bs.NEG).all() and (got[:, 7] == bs.NEG).all()
+    assert (got[:, [0, 2, 3, 4, 5, 6]] > bs.NEG).all()
+
+
+def test_bank_tilemax_extreme_codes(cuda):
+    """Codes of +-127 and -128 at D = 1024: sums reach +-2^24 and stay
+    exact in f32."""
+    n, m, d = 200, 1000, 1024
+    g = torch.Generator(device=cuda).manual_seed(4)
+    codes = torch.tensor([-128, -127, 127], dtype=torch.int8, device=cuda)
+    pq = codes[torch.randint(0, 3, (n, d), generator=g, device=cuda)]
+    q = codes[torch.randint(0, 3, (m, d), generator=g, device=cuda)]
+    pq[0], q[0], q[1] = -128, -128, 127
+    sc = torch.ones(m, device=cuda)
+    valid = torch.ones(m, dtype=torch.bool, device=cuda)
+    got = bs.bank_tilemax(pq, q, sc, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, bs.bank_tilemax_reference(pq, q, sc, valid))
+    assert got[0, 0].item() == 2.0 ** 24
+
+
+def test_bank_tilemax_never_takes_the_plain_version(cuda, monkeypatch):
+    """A CUDA tensor goes to the kernel; the plain version is for the CPU."""
+    pq, q, sc, valid = _bank(64, 5000, 128, 0.1, cuda)
+    want = bs.bank_tilemax_reference(pq, q, sc, valid)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(bs, "bank_tilemax_reference", refuse)
+    got = bs.bank_tilemax(pq, q, sc, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_bank_tilemax_unaligned_scale_and_mask(cuda):
+    """Scales and mask that start off a 16-byte boundary (views into larger
+    tensors): the kernel reads them through maps that start below them."""
+    pq, q, sc, valid = _bank(100, 3000, 96, 0.2, cuda, seed=9)
+    for s_off, v_off in ((1, 3), (2, 15), (3, 1)):
+        sc_big = torch.rand(3000 + s_off, device=cuda)
+        v_big = torch.rand(3000 + v_off, device=cuda) >= 0.2
+        sc_v, valid_v = sc_big[s_off:], v_big[v_off:]
+        assert sc_v.data_ptr() % 16 and valid_v.data_ptr() % 16
+        got = bs.bank_tilemax(pq, q, sc_v, valid_v)
+        torch.cuda.synchronize()
+        assert torch.equal(got, bs.bank_tilemax_reference(pq, q, sc_v, valid_v))
+
+
+def test_bank_tilemax_launch_plan(cuda):
+    """One launch per call: probe groups are a grid dimension, one CTA per
+    SM walks the tiles. 256 probes fit one group up to D = 512, 128 at
+    D = 1024."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    serving = bs.bank_tilemax_info(256, 1 << 20, 512)
+    assert serving["probe_groups"] == 1 and serving["probes_per_group"] == 256
+    assert serving["ctas"] == sms and serving["spill_bytes"] == 0
+    assert serving["smem_bytes"] <= 232448 and serving["stages"] >= 4
+    wide = bs.bank_tilemax_info(300, 1 << 16, 1024)
+    assert wide["probe_groups"] == 3 and wide["probes_per_group"] == 128
+    assert wide["ctas"] == 3 * sms
+    small = bs.bank_tilemax_info(7, 300, 48)
+    assert small["probe_groups"] == 1 and small["ctas"] == 3 and small["threads"] == 160
 
 
 def test_fused_path_equals_scan_on_card(cuda):
@@ -134,3 +241,11 @@ def test_bank_tilemax_refuses_what_it_does_not_take(cuda):
         bs.bank_tilemax(pq, q, sc, valid, tile=64)
     with pytest.raises(ValueError, match="is on"):
         bs.bank_tilemax(pq, q.cpu(), sc, valid)
+    # a launch the library refuses raises through the wrapper's check
+    lib = _build.load_library()
+    out = torch.empty((8, 8), device=cuda)
+    err = lib.crfr_bank_tilemax(pq.data_ptr(), q.data_ptr(), sc.data_ptr(), valid.data_ptr(),
+                                out.data_ptr(), 8, 1000, 40, 128,
+                                torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(lib, err, "bank_tilemax")
