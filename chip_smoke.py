@@ -12,8 +12,14 @@ Phases, each printing one JSON line:
    shapes, and timed beside its bound, the plain version and one library
    call as yardstick. The preprocessing kernels are held against a float64
    product too (TF32 off), with the bound counting the flops the function
-   needs through its banded factors (``needed_flops``), not the dense
-   products the kernel does. ``bank_tilemax`` must equal its plain version
+   needs through its banded factors (``needed_flops``). Their cases: the main
+   one (B=256, 112², uint8 → bf16, low 16, pil), f32 input and output, cv2,
+   low 15 (pil and cv2), B=1, the 160×140 → 112² resize and a 37×200 → 112×96
+   uint8 resize whose rows are not 16-byte multiples. The main case and the
+   160×140 resize are also timed at several band heights (``ms_by_rows``) and
+   with a cold L2 (``cold_ms``); both entries carry the launch plan
+   (``fused_preprocess.resample_info``); every band height must equal the
+   default bit for bit. ``bank_tilemax`` must equal its plain version
    exactly (serving shape, ragged bank, 7 probes, D=64, D=48, one bank row,
    and 300 probes at D=1024, which take three probe groups), its entry
    carries the launch plan (registers, spill bytes, shared memory, CTAs,
@@ -21,8 +27,9 @@ Phases, each printing one JSON line:
    alone;
 3. embed: the main path, ``build_embed_pipeline("ir_50")`` at B=256 on
    random uint8 images (IR-50 in bf16, weights from seed 0), with the
-   launch counters reset just before one call and read just after; its
-   output is checked against a float32 plain-path run, then timed;
+   launch counters reset just before one call and read just after (exactly
+   one preprocessing launch); its output is checked against a float32
+   plain-path run, then timed;
 4. verify: ``make_extract_fn`` on HR images and their 16 px probes, then the
    10-fold protocol on the card, which must equal the same protocol run on
    CPU tensors for the same distances;
@@ -75,11 +82,18 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+SPIN_CYCLES_PER_CALL = 400_000   # ~0.2 ms of a spin kernel per call to enqueue
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call over ``iters`` back-to-back calls."""
+    """Mean device time of one call over ``iters`` back-to-back calls. A
+    spin kernel ahead of them holds the device while the host enqueues the
+    calls, so the host's own time per call does not pace them."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -116,6 +130,26 @@ def event_ms(fn, repeats: int = 5) -> tuple[float, list[float]]:
     return float(np.median(times)), times
 
 
+def cold_ms(fn, repeats: int = 10) -> tuple[float, list[float]]:
+    """Median device time of one call with a cold L2: before each call a
+    64 MB write evicts the 50 MB L2, then a spin kernel holds the device
+    while the host enqueues the call between two events."""
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        flush.fill_(1)
+        torch.cuda._sleep(SPIN_CYCLES_PER_CALL)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), times
+
+
 def bound(in_bytes: int, out_bytes: int, ops: int,
           peak_ops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES_PER_S
@@ -144,19 +178,17 @@ def needed_flops(which: str, b: int, c: int, h: int, w: int, arg, mode: str) -> 
 
 
 def kernel_case(fp, which: str, x: torch.Tensor, arg, mode: str, out_dtype: torch.dtype,
-                timed: bool) -> dict:
-    """Kernel vs plain version vs float64 on ``x``; times when ``timed``."""
-    from crfr_torch.ops.fused_preprocess import _operators
-
+                timed: bool, rows_sweep: tuple[int, ...] = ()) -> dict:
+    """Kernel vs plain version vs float64 on ``x``; times when ``timed``, and
+    at each band height of ``rows_sweep``."""
     kern = getattr(fp, which)
     plain = getattr(fp, which + "_reference")
     b, h, w, c = x.shape
     oh, ow = (h, w) if which == "fused_degrade_normalize" else arg
-    key = (("degrade", h, w, arg, mode) if which == "fused_degrade_normalize"
-           else ("resize", h, w, oh, ow, mode))
+    key = fp.operator_key(h, w, arg, mode)
     got = kern(x, arg, mode, out_dtype)
     want = plain(x, arg, mode, out_dtype)
-    wr, wc = (m.double() for m in _operators(key, x.device))
+    wr, wc = (m.double() for m in fp._operators(key, x.device))
     exact = (wr @ x.double().permute(0, 3, 1, 2) @ wc.t() - 127.5) / 128.0
     exact = exact.permute(0, 2, 3, 1)
     torch.cuda.synchronize()
@@ -167,24 +199,40 @@ def kernel_case(fp, which: str, x: torch.Tensor, arg, mode: str, out_dtype: torc
     if got.shape != want.shape or got.dtype != out_dtype or not got.is_contiguous():
         raise AssertionError(f"{which}: bad output {got.shape} {got.dtype}")
     if not (err <= tol and err64 <= tol64):
-        raise AssertionError(f"{which} {mode} {x.dtype}->{out_dtype}: max_abs_err "
-                             f"{err} (tol {tol}), vs float64 {err64} (tol {tol64})")
+        raise AssertionError(f"{which} {mode} {list(x.shape)} {x.dtype}->{out_dtype}: "
+                             f"max_abs_err {err} (tol {tol}), vs float64 {err64} (tol {tol64})")
     case = {"in": str(x.dtype).split(".")[-1], "out": str(out_dtype).split(".")[-1],
             "shape": [b, h, w, c], "out_hw": [oh, ow], "mode": mode,
-            "max_abs_err": err, "tolerance": tol, "max_abs_err_vs_f64": err64}
+            "max_abs_err": err, "tolerance": tol, "max_abs_err_vs_f64": err64,
+            "plan": fp.resample_info(tuple(x.shape), arg, mode, x.dtype, out_dtype)}
+    if which == "fused_degrade_normalize":
+        case["low"] = arg
     if timed:
         xf = x.float()
         flops = needed_flops(which, b, c, h, w, arg, mode)
         in_bytes = x.numel() * x.element_size() + (oh * h + ow * w) * 4
         out_bytes = got.numel() * got.element_size()
         bms, by = bound(in_bytes, out_bytes, flops)
-        wr32, wc32 = _operators(key, x.device)
+        wr32, wc32 = fp._operators(key, x.device)
         case.update(
             ms=cuda_ms(lambda: kern(x, arg, mode, out_dtype)),
+            host_us=host_us(lambda: kern(x, arg, mode, out_dtype)),
             plain_ms=cuda_ms(lambda: plain(x, arg, mode, out_dtype)),
             library_ms=cuda_ms(lambda: torch.einsum("oi,bijc,pj->bopc", wr32, xf, wc32)),
-            bound_ms=bms, bound_by=by, flops=flops, bytes=in_bytes + out_bytes,
-            kernel_flops=2 * b * c * (oh * h * w + oh * w * ow))
+            library_call="torch.einsum('oi,bijc,pj->bopc', Wr, x.float(), Wc): the two "
+                         "dense products, without the epilogue and cast",
+            bound_ms=bms, bound_by=by, flops=flops, bytes=in_bytes + out_bytes)
+        if rows_sweep:
+            sweep = {}
+            for r in rows_sweep:
+                sweep[str(r)] = cuda_ms(lambda: fp._launch(x, key, oh, ow, out_dtype, which,
+                                                           rows=r))
+                # each output's sums run in the same order whatever the band height
+                if not torch.equal(fp._launch(x, key, oh, ow, out_dtype, which, rows=r), got):
+                    raise AssertionError(f"{which}: bands of {r} rows differ from "
+                                         f"bands of {fp._rows(key, None)}")
+            case["ms_by_rows"] = sweep
+            case["cold_ms"], case["cold_ms_runs"] = cold_ms(lambda: kern(x, arg, mode, out_dtype))
     return case
 
 
@@ -192,26 +240,39 @@ def phase_kernels(fp) -> list[dict]:
     g = torch.Generator(device="cuda").manual_seed(1)
     u8 = torch.randint(0, 256, (B, S, S, 3), generator=g, device="cuda", dtype=torch.uint8)
     f32 = u8.float()
+    bf16, f32_out = torch.bfloat16, torch.float32
     degrade = []
     for x in (u8, f32):
-        for out_dtype in (torch.bfloat16, torch.float32):
+        for out_dtype in (bf16, f32_out):
             for mode in ("pil", "cv2"):
-                main = x is u8 and out_dtype == torch.bfloat16 and mode == "pil"
+                main = x is u8 and out_dtype == bf16 and mode == "pil"
                 degrade.append(kernel_case(fp, "fused_degrade_normalize", x, LOW, mode,
-                                           out_dtype, timed=main or (x is f32 and mode == "pil")))
+                                           out_dtype, timed=main or (x is f32 and mode == "pil"),
+                                           rows_sweep=(S, 56, 28, 16) if main else ()))
+    degrade += [kernel_case(fp, "fused_degrade_normalize", u8, 15, mode, bf16, timed=False)
+                for mode in ("pil", "cv2")]
+    degrade += [kernel_case(fp, "fused_degrade_normalize", u8[:1].contiguous(), LOW, "pil",
+                            out_dtype, timed=False) for out_dtype in (bf16, f32_out)]
     big = torch.randint(0, 256, (B, 160, 140, 3), generator=g, device="cuda", dtype=torch.uint8)
-    resize = [kernel_case(fp, "fused_resize_normalize", big, (S, S), "pil", torch.bfloat16, True),
+    odd = torch.randint(0, 256, (5, 37, 200, 3), generator=g, device="cuda", dtype=torch.uint8)
+    resize = [kernel_case(fp, "fused_resize_normalize", big, (S, S), "pil", bf16, True,
+                          rows_sweep=(56, 32, 16)),
               kernel_case(fp, "fused_resize_normalize", big.float(), (S, S), "pil",
-                          torch.float32, True)]
+                          f32_out, True),
+              kernel_case(fp, "fused_resize_normalize", odd, (S, 96), "pil", bf16, False),
+              kernel_case(fp, "fused_resize_normalize", odd, (S, 96), "pil", f32_out, False)]
+    plan_keys = ("registers", "spill_bytes", "smem_bytes", "ctas", "rows")
     return [
         {"name": "fused_degrade_normalize", "route": "cuda",
          "source": "crfr_torch/ops/csrc/fused_preprocess.cu",
          "replaces": "crfr/ops/fused_pallas.py:34", "on_main_path": True,
-         "cases": degrade, **_headline(degrade[0])},
+         "cases": degrade, **_headline(degrade[0]),
+         **{k: degrade[0]["plan"][k] for k in plan_keys}},
         {"name": "fused_resize_normalize", "route": "cuda",
          "source": "crfr_torch/ops/csrc/fused_preprocess.cu",
          "replaces": "crfr/ops/fused_pallas.py:93", "on_main_path": False,
-         "cases": resize, **_headline(resize[0])},
+         "cases": resize, **_headline(resize[0]),
+         **{k: resize[0]["plan"][k] for k in plan_keys}},
     ]
 
 
@@ -300,8 +361,9 @@ def phase_embed(fp) -> tuple[dict, dict]:
         raise AssertionError(f"embed: bad output {tuple(emb.shape)} {emb.dtype}")
     if not torch.isfinite(emb).all():
         raise AssertionError("embed: non-finite embeddings")
-    if launches["fused_degrade_normalize"] < 1:
-        raise AssertionError("embed: the main path did not launch the preprocessing kernel")
+    if launches["fused_degrade_normalize"] != 1:
+        raise AssertionError(f"embed: one batch launched the preprocessing kernel "
+                             f"{launches['fused_degrade_normalize']} times, want once")
 
     # the bf16 pipeline against the float32 plain path on 16 images
     model32 = build_backbone("ir_50", generator=torch.Generator().manual_seed(0)).cuda().eval()

@@ -40,10 +40,10 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.crfr_resample_normalize.argtypes = [p, i, p, p, p, i, i, i, i, i, i, i, p]
+    lib.crfr_resample_normalize.argtypes = [p, i, p, i, i, i, p, i, i, i, i, p]
     lib.crfr_resample_normalize.restype = i
-    lib.crfr_resample_max_hw.argtypes = []
-    lib.crfr_resample_max_hw.restype = i
+    lib.crfr_resample_info.argtypes = [i, i, i, i, p, i, i, i, i, p]
+    lib.crfr_resample_info.restype = i
     lib.crfr_bank_tilemax.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.crfr_bank_tilemax.restype = i
     lib.crfr_bank_tilemax_tile.argtypes = []

@@ -2,42 +2,50 @@
 //
 // Replaces the Pallas TPU kernels in crfr/ops/fused_pallas.py: `_kernel`
 // (behind fused_degrade_normalize) and the inner `kernel` of
-// fused_resize_normalize. For every (image, channel) plane X (H x W) of an
-// NHWC batch it computes
+// fused_resize_normalize. For every image of an NHWC batch and every channel
+// it computes
 //
-//     Y   = Wr . X . Wc^T            Wr (OH x H), Wc (OW x W), f32
+//     Y   = Wr . X . Wc^T            Wr (OH x H), Wc (OW x W)
 //     out = cast((Y - 127.5) / 128)  f32 or bf16, NHWC
 //
-// Degrade (bicubic down to `low`, back up) is Wr = Wc = degrade_matrix(S, low).
+// A resize has Wr = resize_matrix(H, OH), Wc = resize_matrix(W, OW); a degrade
+// (bicubic down to `low`, back up) has Wr = up_H . down_H, Wc = up_W . down_W.
 //
-// What bounds it on an H100: at the main path's B=256, S=112, C=3 the
-// function moves 9.6 MB of uint8 in and 19 MB of bf16 out (3.35 TB/s:
-// 8.7 us). Its operators are banded bicubic factors (degrade = up . down,
-// rank `low`), so the flops it needs are small: 0.15 GFLOP through the
-// factors' nonzero taps (2 us at 67 TFLOP/s f32). The function is bound by
-// bytes. This design instead does the two dense products, 4*S^3 = 5.6 MFLOP
-// per plane, 4.3 GFLOP in all (64 us in f32 FMA), so the design, not the
-// function, is bound by arithmetic. TF32 tensor cores would miss the f32
-// tolerance the reference holds this stage to (atol 2e-3), so it stays on
-// FMA; reaching the byte bound means applying the banded factors.
+// What bounds it on an H100: at the main path's B=256, S=112, C=3 it must read
+// 9.6 MB of uint8 and write 19.3 MB of bf16, 28.9 MB, 8.7 us at 3.35 TB/s.
+// The bicubic factors are narrow bands (pil 112->16: at most 27 inputs per
+// output; 16->112: at most 4), so through them the function needs 0.15 GFLOP,
+// 2 us at the f32 FMA peak. It is bound by bytes; tensor cores would not help.
 //
-// Design. The TPU kernel keeps a whole plane, W and W.X in VMEM per grid
-// step. On Hopper that is ~147 KB for 112x112 (one CTA per SM) and ~287 KB
-// for 160x140 -> 112 (more than a CTA may have). Here each CTA computes a
-// band of kBand output rows of one plane:
-//   phase 1  T = Wr[band, :] . X   (kBand x W), X read straight from global
-//            memory through L1/L2 (each plane is re-read by its OH/kBand
-//            bands; the whole input stays resident in the 50 MB L2), the
-//            band's Wr rows staged transposed in shared memory so every k
-//            step is 4 broadcast float4 loads feeding 16 FMAs per thread;
-//   phase 2  Y[band, :] = T . Wc^T, T from shared memory the same way, Wc^T
-//            read coalesced from global memory (L2 resident).
-// Shared memory is (H + W) * kBand floats (14 KB at 112x112), so many CTAs
-// share an SM and hide the global-load latency. uint8 or f32 pixels are read
-// directly from NHWC (channel stride C); the NHWC output is the channels_last
-// layout of an NCHW tensor, so the backbone takes it without a transpose.
-// No tensor cores, TMA or wgmma: a faster version (the banded factors, or a
-// 3xTF32 split on wgmma) is later work.
+// Design. Each 1-D factor arrives as a band table (built on the host by
+// crfr_torch/ops/fused_preprocess.py): per output index the first input
+// index and n_taps f32 weights, resize_matrix's own entries, zero-padded to
+// the factor's widest span. One CTA takes one band of `rows` output rows of
+// one image (a degrade's band is the whole image, a resize's 32 rows: the
+// fastest measured, PERF.md), all channels together, so every row it reads
+// or writes is W*C contiguous NHWC elements. A degrade, per band:
+//   (s) stage: the input rows the band reads, one contiguous stretch of
+//       NHWC, copied to shared memory by cp.async, 16 bytes a thread, all in
+//       flight at once, so each input byte leaves device memory once. (Read
+//       from global memory inside (a) instead, the loads waited on latency;
+//       PERF.md.)
+//   (a) vertical down, only the low-res rows the band's output rows touch
+//       (at most `span`): two rows a thread, the overlap of their windows
+//       loaded and converted once (uint8 by PRMT + FADD), to [span][W*C] f32;
+//   (b) horizontal down, [span][low*C], and (c) horizontal up, [span][W*C],
+//       one output pixel a thread, each weight loaded once for all channels:
+//       the horizontal passes run on the low-res rows only;
+//   (d) vertical up fused with the epilogue and the cast. A band's output
+//       rows are one contiguous stretch of NHWC, stored 16 bytes a thread
+//       where aligned (else 8 or 4 bytes, or one element). With four taps
+//       (every bicubic upscale) each thread keeps four source rows of its
+//       column chunk in registers and walks a run of output rows, so each
+//       source value leaves shared memory about once.
+// A resize is (s), (c) along W on its input rows, then (d) along H.
+// Every sum is f32 fmaf over a row's taps in order, so the result does not
+// depend on the band height. What holds it back, measured: a single wave of
+// CTAs, at most two on an SM, each running its passes one after another
+// behind barriers (PERF.md; crfr_torch/bench/preprocess_phases.py times each).
 //
 // Plain C interface, built with nvcc into a shared library and called
 // through ctypes (crfr_torch/ops/_build.py). The caller allocates `out` and
@@ -47,119 +55,601 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+extern "C" {
+// One 1-D bicubic factor as a band table (device pointers).
+typedef struct {
+  const int* start;    // [n_out] first input index of each output's window
+  const float* taps;   // [n_taps][n_out] weights, zero-padded
+  int n_in, n_out, n_taps;
+} crfr_band;
+}
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kBand = 16;                 // output rows per CTA
-constexpr int kMaxSmemBytes = 48 * 1024;  // no dynamic-smem opt-in needed
+constexpr int kThreads = 384;
 
-__device__ __forceinline__ float load_px(const uint8_t* p) { return static_cast<float>(__ldg(p)); }
-__device__ __forceinline__ float load_px(const float* p) { return __ldg(p); }
+struct Params {
+  crfr_band op[4];  // degrade: down H, down W, up H, up W; resize: H, W
+  int C, H, W, OH, OW;
+  int rows;         // output rows per CTA
+  int bands;        // CTAs per image
+  int rows_off;     // float offset of the [span][max(W, OW)*C] buffer
+  int low_off;      // degrade: float offset of the [span][low*C] buffer
+  int in_vec;       // input elements per load in (a)
+  int out_vec;      // outputs per store in (d)
+};
 
-__device__ __forceinline__ void store_px(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_px(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// Walks the items (row, column) of a grid `cols` wide, kThreads apart,
+// without a division per step.
+struct Walk {
+  int r, c, dr, dc, cols;
+  __device__ __forceinline__ explicit Walk(int cols_) : cols(cols_) {
+    r = threadIdx.x / cols;
+    c = threadIdx.x - r * cols;
+    dr = kThreads / cols;
+    dc = kThreads - dr * cols;
+  }
+  __device__ __forceinline__ void next() {
+    r += dr;
+    c += dc;
+    if (c >= cols) { c -= cols; ++r; }
+  }
+};
 
-__device__ __forceinline__ void fma16(float (&acc)[kBand], const float* w16, float v) {
-  const float4* w4 = reinterpret_cast<const float4*>(w16);
+// ---- loads and stores of V consecutive elements --------------------------
+
+// V staged input pixels from shared memory, as floats.
+template <int V>
+__device__ __forceinline__ void load_vec(const uint8_t* p, float (&v)[V]) {
+  uint32_t w[(V + 3) / 4];
+  if constexpr (V == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    w[0] = u.x; w[1] = u.y;
+  } else if constexpr (V == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {
+    w[0] = *p;
+  }
+  // byte k into the mantissa of 2^23: (2^23 + byte) - 2^23, exact, two full-rate ops
 #pragma unroll
-  for (int q = 0; q < kBand / 4; ++q) {
-    const float4 w = w4[q];
-    acc[4 * q + 0] = fmaf(w.x, v, acc[4 * q + 0]);
-    acc[4 * q + 1] = fmaf(w.y, v, acc[4 * q + 1]);
-    acc[4 * q + 2] = fmaf(w.z, v, acc[4 * q + 2]);
-    acc[4 * q + 3] = fmaf(w.w, v, acc[4 * q + 3]);
+  for (int k = 0; k < V; ++k)
+    v[k] = __uint_as_float(__byte_perm(w[k >> 2], 0x4b000000u, 0x7440u | (k & 3))) - 8388608.0f;
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < V; k += 4) {
+      const float4 u = *reinterpret_cast<const float4*>(p + k);
+      v[k] = u.x; v[k + 1] = u.y; v[k + 2] = u.z; v[k + 3] = u.w;
+    }
+  } else if constexpr (V == 2) {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    v[0] = u.x; v[1] = u.y;
+  } else {
+    v[0] = *p;
   }
 }
 
-// grid (B*C, ceil(OH / kBand)); block kThreads; dynamic smem (H + W) * kBand floats.
-// wr_t is Wr^T (H x OH), wc_t is Wc^T (W x OW), both contiguous f32.
-template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(kThreads)
-resample_normalize_kernel(const Tin* __restrict__ x, const float* __restrict__ wr_t,
-                          const float* __restrict__ wc_t, Tout* __restrict__ out,
-                          int C, int H, int W, int OH, int OW) {
-  extern __shared__ __align__(16) float smem[];
-  float* s_wr = smem;             // [H][kBand]: s_wr[k][i] = Wr[r0 + i][k]
-  float* s_t = smem + H * kBand;  // [W][kBand]: s_t[j][i]  = T[i][j]
+template <typename T>
+__device__ __forceinline__ float load_one(const T* p) {
+  float v[1];
+  load_vec<1>(p, v);
+  return v[0];
+}
 
-  const int plane = blockIdx.x;
-  const int b = plane / C;
-  const int c = plane - b * C;
-  const int r0 = blockIdx.y * kBand;
-
-  for (int e = threadIdx.x; e < H * kBand; e += kThreads) {
-    const int k = e / kBand;
-    const int i = e - k * kBand;
-    s_wr[e] = (r0 + i < OH) ? wr_t[k * OH + r0 + i] : 0.f;
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&y)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(y[0], y[1], y[2], y[3]);
+  } else {
+    p[0] = y[0];
   }
-  __syncthreads();
+}
 
-  // Phase 1: T = Wr[band, :] . X, one column j of T per thread.
-  const Tin* xp = x + static_cast<size_t>(b) * H * W * C + c;
-  const int row_stride = W * C;
-  for (int j = threadIdx.x; j < W; j += kThreads) {
-    float acc[kBand];
+template <int V>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p, const float (&y)[V]) {
+  if constexpr (V == 1) {
+    p[0] = __float2bfloat16(y[0]);
+  } else {
+    __nv_bfloat162 h[V / 2];
 #pragma unroll
-    for (int i = 0; i < kBand; ++i) acc[i] = 0.f;
-    const Tin* col = xp + j * C;
-#pragma unroll 4
-    for (int k = 0; k < H; ++k) fma16(acc, s_wr + k * kBand, load_px(col + k * row_stride));
-    float4* t4 = reinterpret_cast<float4*>(s_t + j * kBand);
-#pragma unroll
-    for (int q = 0; q < kBand / 4; ++q)
-      t4[q] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
-  }
-  __syncthreads();
-
-  // Phase 2: Y[band, p] = T . Wc[p, :]^T, one output column p per thread.
-  Tout* op = out + static_cast<size_t>(b) * OH * OW * C + c;
-  for (int p = threadIdx.x; p < OW; p += kThreads) {
-    float acc[kBand];
-#pragma unroll
-    for (int i = 0; i < kBand; ++i) acc[i] = 0.f;
-#pragma unroll 4
-    for (int j = 0; j < W; ++j) fma16(acc, s_t + j * kBand, __ldg(wc_t + j * OW + p));
-#pragma unroll
-    for (int i = 0; i < kBand; ++i) {
-      const int r = r0 + i;
-      if (r < OH) store_px(op + (static_cast<size_t>(r) * OW + p) * C, (acc[i] - 127.5f) * (1.0f / 128.0f));
+    for (int k = 0; k < V / 2; ++k) h[k] = __floats2bfloat162_rn(y[2 * k], y[2 * k + 1]);
+    if constexpr (V == 8) {
+      uint4 u;
+      u.x = *reinterpret_cast<const uint32_t*>(&h[0]);
+      u.y = *reinterpret_cast<const uint32_t*>(&h[1]);
+      u.z = *reinterpret_cast<const uint32_t*>(&h[2]);
+      u.w = *reinterpret_cast<const uint32_t*>(&h[3]);
+      *reinterpret_cast<uint4*>(p) = u;
+    } else if constexpr (V == 4) {
+      uint2 u;
+      u.x = *reinterpret_cast<const uint32_t*>(&h[0]);
+      u.y = *reinterpret_cast<const uint32_t*>(&h[1]);
+      *reinterpret_cast<uint2*>(p) = u;
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(p) = h[0];
     }
   }
 }
 
-template <typename Tin, typename Tout>
-cudaError_t launch(const void* x, const float* wr_t, const float* wc_t, void* out, int B, int C,
-                   int H, int W, int OH, int OW, cudaStream_t stream) {
-  const dim3 grid(B * C, (OH + kBand - 1) / kBand);
-  const size_t smem = static_cast<size_t>(H + W) * kBand * sizeof(float);
-  resample_normalize_kernel<Tin, Tout><<<grid, kThreads, smem, stream>>>(
-      static_cast<const Tin*>(x), wr_t, wc_t, static_cast<Tout*>(out), C, H, W, OH, OW);
-  return cudaGetLastError();
+// Copies `bytes` bytes from global to shared memory, dst and src congruent
+// modulo 16: cp.async 16 bytes a thread for the aligned middle, all in
+// flight at once, single bytes at the ends. Returns when the CTA has them.
+__device__ __forceinline__ void stage_rows(const uint8_t* __restrict__ src,
+                                           uint8_t* __restrict__ dst, int bytes) {
+  const int head = min(bytes, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(src) & 15)) & 15));
+  const int n16 = (bytes - head) >> 4;
+  for (int i = threadIdx.x; i < n16; i += kThreads) {
+    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + head + 16 * i));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src + head + 16 * i)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  for (int i = threadIdx.x; i < head; i += kThreads) dst[i] = src[i];
+  for (int i = head + 16 * n16 + threadIdx.x; i < bytes; i += kThreads) dst[i] = src[i];
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// Built with -DCRFR_PHASE_CLOCK (crfr_torch/bench/preprocess_phases.py only),
+// thread 0 of every CTA records the global timer after each pass, and its SM.
+#ifdef CRFR_PHASE_CLOCK
+__device__ unsigned long long* crfr_phase_clock_buf = nullptr;  // [CTA][8]
+__device__ __forceinline__ void phase_clock(int k) {
+  if (threadIdx.x == 0 && crfr_phase_clock_buf != nullptr) {
+    unsigned long long t;
+    unsigned int sm;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    crfr_phase_clock_buf[blockIdx.x * 8 + k] = t;
+    crfr_phase_clock_buf[blockIdx.x * 8 + 7] = sm;
+  }
+}
+#else
+__device__ __forceinline__ void phase_clock(int) {}
+#endif
+
+// ---- the passes --------------------------------------------------------------
+// Rows are NHWC rows, n_pixels*C contiguous elements, all in shared memory.
+// A table's weight t of output o is taps[t * n_out + o]: threads on
+// neighbouring outputs load neighbouring weights.
+
+// acc[k] += w * src[k] for V consecutive elements.
+template <int V, typename T>
+__device__ __forceinline__ void tap(float (&acc)[V], const T* src, float w) {
+  float v[V];
+  load_vec<V>(src, v);
+#pragma unroll
+  for (int k = 0; k < V; ++k) acc[k] = fmaf(w, v[k], acc[k]);
+}
+
+// acc[k] = sum_t w(o, t) * src[t * len + k], t in order; four taps unrolled.
+template <int V, typename T>
+__device__ __forceinline__ void vertical_sum(float (&acc)[V], const T* src, int len,
+                                             const crfr_band& op, int o) {
+#pragma unroll
+  for (int k = 0; k < V; ++k) acc[k] = 0.f;
+  const float* w = op.taps + o;
+  if (op.n_taps == 4) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) tap<V>(acc, src + t * len, __ldg(w + t * op.n_out));
+  } else {
+#pragma unroll 4
+    for (int t = 0; t < op.n_taps; ++t) tap<V>(acc, src + t * len, __ldg(w + t * op.n_out));
+  }
+}
+
+// (a) dst[r][e] = sum_t w(o0 + r, t) * src[start[o0 + r] - first + t][e] for
+// r < n, e < len: V elements of two neighbouring rows a thread. The two
+// windows overlap (a downscale's stride is below its taps), so each source
+// element of the overlap is loaded and converted once for both sums; each
+// row's sum still runs over its taps in order.
+template <int V, typename Tin>
+__device__ __forceinline__ void vertical(const Tin* __restrict__ src, int first,
+                                         const crfr_band& op, int o0, int n, int len,
+                                         float* __restrict__ dst) {
+  const int T = op.n_taps;
+  Walk it(len / V);
+  for (; 2 * it.r < n; it.next()) {
+    const int ra = 2 * it.r, oa = o0 + ra;
+    const bool two = ra + 1 < n;
+    const int sa = __ldg(op.start + oa) - first;
+    const int sb = two ? __ldg(op.start + oa + 1) - first : sa + T;
+    const int tb = two ? T : 0;                       // row b's taps (none without it)
+    const float* wa = op.taps + oa;
+    const float* wb = wa + 1;
+    const Tin* col = src + it.c * V;
+    float a[V], b[V], v[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) a[k] = b[k] = 0.f;
+    int k = sa;
+    for (const int end = min(sb, sa + T); k < end; ++k) {              // row a alone
+      load_vec<V>(col + k * len, v);
+      const float w = __ldg(wa + (k - sa) * op.n_out);
+#pragma unroll
+      for (int q = 0; q < V; ++q) a[q] = fmaf(w, v[q], a[q]);
+    }
+    for (; k < sa + T; ++k) {                                          // both rows
+      load_vec<V>(col + k * len, v);
+      const float w = __ldg(wa + (k - sa) * op.n_out), u = __ldg(wb + (k - sb) * op.n_out);
+#pragma unroll
+      for (int q = 0; q < V; ++q) {
+        a[q] = fmaf(w, v[q], a[q]);
+        b[q] = fmaf(u, v[q], b[q]);
+      }
+    }
+    for (k = max(k, sb); k < sb + tb; ++k) {                           // row b alone
+      load_vec<V>(col + k * len, v);
+      const float u = __ldg(wb + (k - sb) * op.n_out);
+#pragma unroll
+      for (int q = 0; q < V; ++q) b[q] = fmaf(u, v[q], b[q]);
+    }
+    float* d = dst + ra * len + it.c * V;
+#pragma unroll
+    for (int q = 0; q < V; ++q) d[q] = a[q];
+    if (two) {
+#pragma unroll
+      for (int q = 0; q < V; ++q) d[len + q] = b[q];
+    }
+  }
+}
+
+template <typename Tin>
+__device__ __forceinline__ void vertical_by_width(int vec, const Tin* __restrict__ src, int first,
+                                                  const crfr_band& op, int o0, int n, int len,
+                                                  float* __restrict__ dst) {
+  if constexpr (sizeof(Tin) == 1) {
+    if (vec == 8) vertical<8>(src, first, op, o0, n, len, dst);
+    else if (vec == 4) vertical<4>(src, first, op, o0, n, len, dst);
+    else vertical<1>(src, first, op, o0, n, len, dst);
+  } else {
+    if (vec == 4) vertical<4>(src, first, op, o0, n, len, dst);
+    else if (vec == 2) vertical<2>(src, first, op, o0, n, len, dst);
+    else vertical<1>(src, first, op, o0, n, len, dst);
+  }
+}
+
+// (b), (c) dst[r][q][c] = sum_t w(q, t) * src[r][start[q] + t][c] for r < n:
+// one output pixel a thread, each weight loaded once for four channels.
+template <typename Tsrc>
+__device__ __forceinline__ void horizontal(const Tsrc* __restrict__ src, int src_len,
+                                           const crfr_band& op, int n, int C,
+                                           float* __restrict__ dst) {
+  Walk it(op.n_out);
+  for (; it.r < n; it.next()) {
+    const int q = it.c;
+    const Tsrc* s = src + it.r * src_len + __ldg(op.start + q) * C;
+    float* d = dst + (it.r * op.n_out + q) * C;
+    for (int cc = 0; cc < C; cc += 4) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int t = 0; t < op.n_taps; ++t) {
+        const float wt = __ldg(op.taps + t * op.n_out + q);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (cc + k < C) acc[k] = fmaf(wt, load_one(s + t * C + cc + k), acc[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (cc + k < C) d[cc + k] = acc[k];
+    }
+  }
+}
+
+// (d) out[r][e] = cast((sum_t w(o0 + r, t) * src[start[o0 + r] - first + t][e]
+// - 127.5) / 128) for r < n, e < len: the band's output rows, one contiguous
+// stretch of NHWC, V outputs a thread (16 bytes where aligned).
+template <int V, typename Tout>
+__device__ __forceinline__ void vertical_store(const float* __restrict__ src, int first,
+                                               const crfr_band& op, int o0, int n, int len,
+                                               Tout* __restrict__ out) {
+  Walk it(len / V);
+  for (; it.r < n; it.next()) {
+    const int o = o0 + it.r;
+    float acc[V];
+    vertical_sum<V>(acc, src + (__ldg(op.start + o) - first) * len + it.c * V, len, op, o);
+    // (acc - 127.5) / 128 in one rounding, as the two steps give: 1/128 is a power of 2
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] = fmaf(acc[k], 1.0f / 128.0f, -127.5f / 128.0f);
+    store_vec<V>(out + it.r * len + it.c * V, acc);
+  }
+}
+
+// (d) for a factor of four taps (every bicubic upscale): each thread keeps
+// one column chunk of four source rows in registers and walks a run of
+// output rows down it, loading a source row when the window moves, so each
+// source value leaves shared memory about once. Same sums, same order.
+template <int V, typename Tout>
+__device__ __forceinline__ void vertical_store4(const float* __restrict__ src, int first,
+                                                const crfr_band& op, int o0, int n, int len,
+                                                Tout* __restrict__ out) {
+  const int chunks = len / V;
+  const int groups = max(1, kThreads / chunks);
+  const int run = (n + groups - 1) / groups;
+  for (int item = threadIdx.x; item < chunks * groups; item += kThreads) {
+    const int g = item / chunks;
+    const int c = item - g * chunks;
+    const int i1 = min(n, (g + 1) * run);
+    int i = g * run;
+    if (i >= i1) continue;
+    const float* col = src + c * V;
+    int base = __ldg(op.start + o0 + i) - first;
+    float w0[V], w1[V], w2[V], w3[V];
+    load_vec<V>(col + base * len, w0);
+    load_vec<V>(col + (base + 1) * len, w1);
+    load_vec<V>(col + (base + 2) * len, w2);
+    load_vec<V>(col + (base + 3) * len, w3);
+    for (; i < i1; ++i) {
+      const int o = o0 + i;
+      for (const int s = __ldg(op.start + o) - first; base < s; ++base) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) { w0[k] = w1[k]; w1[k] = w2[k]; w2[k] = w3[k]; }
+        load_vec<V>(col + (base + 4) * len, w3);
+      }
+      const float* w = op.taps + o;
+      const float t0 = __ldg(w), t1 = __ldg(w + op.n_out), t2 = __ldg(w + 2 * op.n_out),
+                  t3 = __ldg(w + 3 * op.n_out);
+      float acc[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k) {
+        const float a = fmaf(t3, w3[k], fmaf(t2, w2[k], fmaf(t1, w1[k], fmaf(t0, w0[k], 0.f))));
+        acc[k] = fmaf(a, 1.0f / 128.0f, -127.5f / 128.0f);
+      }
+      store_vec<V>(out + i * len + c * V, acc);
+    }
+  }
+}
+
+template <typename Tout>
+__device__ __forceinline__ void vertical_store_by_width(int vec, const float* __restrict__ src,
+                                                        int first, const crfr_band& op, int o0,
+                                                        int n, int len, Tout* __restrict__ out) {
+  if (op.n_taps == 4) {
+    if constexpr (sizeof(Tout) == 2) {
+      if (vec == 8) vertical_store4<8>(src, first, op, o0, n, len, out);
+      else if (vec == 4) vertical_store4<4>(src, first, op, o0, n, len, out);
+      else if (vec == 2) vertical_store4<2>(src, first, op, o0, n, len, out);
+      else vertical_store4<1>(src, first, op, o0, n, len, out);
+    } else {
+      if (vec == 4) vertical_store4<4>(src, first, op, o0, n, len, out);
+      else vertical_store4<1>(src, first, op, o0, n, len, out);
+    }
+    return;
+  }
+  if constexpr (sizeof(Tout) == 2) {
+    if (vec == 8) vertical_store<8>(src, first, op, o0, n, len, out);
+    else if (vec == 4) vertical_store<4>(src, first, op, o0, n, len, out);
+    else if (vec == 2) vertical_store<2>(src, first, op, o0, n, len, out);
+    else vertical_store<1>(src, first, op, o0, n, len, out);
+  } else {
+    if (vec == 4) vertical_store<4>(src, first, op, o0, n, len, out);
+    else vertical_store<1>(src, first, op, o0, n, len, out);
+  }
+}
+
+// grid (B * bands); block kThreads; dynamic shared memory from make_plan().
+// The vertical factor into the output (up along H, or the resize's H) names
+// the rows a band reads before its last pass: [lo, lo + nl), nl <= span.
+template <typename Tin, typename Tout, bool kDegrade>
+__global__ void __launch_bounds__(kThreads)
+resample_normalize_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, const Params p) {
+  extern __shared__ __align__(16) float smem[];
+  phase_clock(0);
+  const int img = blockIdx.x / p.bands;
+  const int r0 = (blockIdx.x - img * p.bands) * p.rows;
+  const int n = min(p.rows, p.OH - r0);
+  const int in_len = p.W * p.C;
+  const int out_len = p.OW * p.C;
+  const crfr_band& last = p.op[kDegrade ? 2 : 0];
+  const int lo = __ldg(last.start + r0);
+  const int nl = __ldg(last.start + r0 + n - 1) + last.n_taps - lo;
+  // the input rows the band reads: [in_lo, in_lo + in_n)
+  int in_lo = lo, in_n = nl;
+  if constexpr (kDegrade) {
+    in_lo = __ldg(p.op[0].start + lo);
+    in_n = __ldg(p.op[0].start + lo + nl - 1) + p.op[0].n_taps - in_lo;
+  }
+  const uint8_t* g = reinterpret_cast<const uint8_t*>(
+      x + (static_cast<size_t>(img) * p.H + in_lo) * in_len);
+  uint8_t* staged = reinterpret_cast<uint8_t*>(smem) + (reinterpret_cast<uintptr_t>(g) & 15);
+  stage_rows(g, staged, in_n * in_len * static_cast<int>(sizeof(Tin)));                // (s)
+  phase_clock(1);
+  const Tin* xs = reinterpret_cast<const Tin*>(staged);
+  float* s_rows = smem + p.rows_off;   // [span][OW*C] before (d)
+  Tout* oi = out + (static_cast<size_t>(img) * p.OH + r0) * out_len;
+  if constexpr (kDegrade) {
+    float* s_low = smem + p.low_off;
+    vertical_by_width<Tin>(p.in_vec, xs, in_lo, p.op[0], lo, nl, in_len, s_rows);       // (a)
+    __syncthreads();
+    phase_clock(2);
+    horizontal(s_rows, in_len, p.op[1], nl, p.C, s_low);                                // (b)
+    __syncthreads();
+    phase_clock(3);
+    horizontal(s_low, p.op[1].n_out * p.C, p.op[3], nl, p.C, s_rows);                   // (c)
+  } else {
+    horizontal(xs, in_len, p.op[1], nl, p.C, s_rows);                                   // (c)
+  }
+  __syncthreads();
+  phase_clock(4);
+  vertical_store_by_width<Tout>(p.out_vec, s_rows, lo, last, r0, n, out_len,
+                                oi);                                                   // (d)
+#ifdef CRFR_PHASE_CLOCK
+  __syncthreads();
+  phase_clock(5);
+#endif
+}
+
+// ---- host side -------------------------------------------------------------
+
+struct Plan {
+  Params p;
+  int smem;   // dynamic shared memory bytes
+  int ctas;
+};
+
+bool valid_band(const crfr_band& b) {
+  return b.start != nullptr && b.taps != nullptr && b.n_in > 0 && b.n_out > 0 &&
+         b.n_taps > 0 && b.n_taps <= b.n_in;
+}
+
+// Shapes and shared memory of one launch; false when the shapes do not chain
+// or the plan does not fit in `limit` bytes.
+bool make_plan(int B, int C, int in_bytes, const crfr_band* ops, int n_ops, int rows, int span,
+               int in_span, int limit, Plan* plan) {
+  if (B <= 0 || C <= 0 || rows <= 0 || (n_ops != 2 && n_ops != 4)) return false;
+  for (int i = 0; i < n_ops; ++i)
+    if (!valid_band(ops[i])) return false;
+  const bool degrade = n_ops == 4;
+  if (degrade && (ops[2].n_in != ops[0].n_out || ops[3].n_in != ops[1].n_out)) return false;
+  if (span <= 0 || span > ops[degrade ? 2 : 0].n_in || in_span <= 0 || in_span > ops[0].n_in ||
+      (!degrade && in_span != span))
+    return false;
+  Params& p = plan->p;
+  p = Params{};
+  for (int i = 0; i < n_ops; ++i) p.op[i] = ops[i];
+  p.C = C;
+  p.H = ops[0].n_in;
+  p.W = ops[1].n_in;
+  p.OH = ops[n_ops - 2].n_out;
+  p.OW = ops[n_ops - 1].n_out;
+  p.rows = rows < p.OH ? rows : p.OH;
+  p.bands = (p.OH + p.rows - 1) / p.rows;
+  // [staged input rows, 16 bytes of slack][span][max(W, OW)*C][span][low*C] (degrade)
+  const long long in_len = static_cast<long long>(p.W) * C;
+  const long long out_len = static_cast<long long>(p.OW) * C;
+  long long floats = (in_span * in_len * in_bytes + 16 + 15) / 16 * 4;
+  p.rows_off = static_cast<int>(floats);
+  floats += span * (degrade && in_len > out_len ? in_len : out_len);
+  if (degrade) {
+    p.low_off = static_cast<int>(floats);
+    floats += span * static_cast<long long>(ops[1].n_out) * C;
+  }
+  const long long ctas = static_cast<long long>(B) * p.bands;
+  if (floats * 4 > limit || ctas > 0x7fffffffLL) return false;
+  plan->smem = static_cast<int>(floats * 4);
+  plan->ctas = static_cast<int>(ctas);
+  return true;
+}
+
+cudaError_t smem_limit(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err;
+}
+
+// The widest vector of `widths` (elements of `elem_bytes` bytes each) that
+// divides a row of `len` elements, where the pointer is aligned to the
+// vector's size (at most 16 bytes).
+int widest(const void* ptr, int len, int elem_bytes, const int* widths, int n) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(ptr);
+  for (int i = 0; i < n; ++i) {
+    const uintptr_t align = widths[i] * elem_bytes < 16 ? widths[i] * elem_bytes : 16;
+    if (len % widths[i] == 0 && a % align == 0) return widths[i];
+  }
+  return 1;
+}
+
+template <typename Tin, typename Tout, bool kDegrade>
+const void* kernel_fn() {
+  return reinterpret_cast<const void*>(&resample_normalize_kernel<Tin, Tout, kDegrade>);
+}
+
+const void* kernel_for(int in_dtype, int out_dtype, bool degrade) {
+  if (in_dtype == 0 && out_dtype == 0)
+    return degrade ? kernel_fn<uint8_t, float, true>() : kernel_fn<uint8_t, float, false>();
+  if (in_dtype == 0 && out_dtype == 1)
+    return degrade ? kernel_fn<uint8_t, __nv_bfloat16, true>()
+                   : kernel_fn<uint8_t, __nv_bfloat16, false>();
+  if (in_dtype == 1 && out_dtype == 0)
+    return degrade ? kernel_fn<float, float, true>() : kernel_fn<float, float, false>();
+  if (in_dtype == 1 && out_dtype == 1)
+    return degrade ? kernel_fn<float, __nv_bfloat16, true>()
+                   : kernel_fn<float, __nv_bfloat16, false>();
+  return nullptr;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest H + W one launch takes (the shared-memory budget above).
-int crfr_resample_max_hw(void) { return kMaxSmemBytes / (kBand * static_cast<int>(sizeof(float))); }
-
-// in_dtype: 0 uint8, 1 float32; out_dtype: 0 float32, 1 bfloat16.
-// Returns a cudaError_t: 0 when the launch was accepted.
-int crfr_resample_normalize(const void* x, int in_dtype, const float* wr_t, const float* wc_t,
-                            void* out, int out_dtype, int B, int C, int H, int W, int OH, int OW,
+// x (B, H, W, C) uint8 (in_dtype 0) or f32 (1), contiguous; out (B, OH, OW, C)
+// f32 (out_dtype 0) or bf16 (1), contiguous. `ops` are 4 band tables for a
+// degrade (down H, down W, up H, up W) or 2 for a resize (H, W); `rows`
+// output rows per CTA; `span` the most rows one band reads through the
+// vertical factor into the output (up H, or the resize's H) and `in_span` the
+// most input rows it reads (equal for a resize). Returns a cudaError_t: 0
+// when the launch was accepted.
+int crfr_resample_normalize(const void* x, int in_dtype, void* out, int out_dtype, int B, int C,
+                            const crfr_band* ops, int n_ops, int rows, int span, int in_span,
                             void* stream) {
-  if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || OH <= 0 || OW <= 0 ||
-      H + W > crfr_resample_max_hw() || static_cast<long long>(B) * C > 0x7fffffffLL)
+  const void* fn = kernel_for(in_dtype, out_dtype, n_ops == 4);
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Plan plan;
+  if (fn == nullptr || x == nullptr || out == nullptr ||
+      !make_plan(B, C, in_dtype == 0 ? 1 : 4, ops, n_ops, rows, span, in_span, limit, &plan))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 0 && out_dtype == 0) return launch<uint8_t, float>(x, wr_t, wc_t, out, B, C, H, W, OH, OW, s);
-  if (in_dtype == 0 && out_dtype == 1) return launch<uint8_t, __nv_bfloat16>(x, wr_t, wc_t, out, B, C, H, W, OH, OW, s);
-  if (in_dtype == 1 && out_dtype == 0) return launch<float, float>(x, wr_t, wc_t, out, B, C, H, W, OH, OW, s);
-  if (in_dtype == 1 && out_dtype == 1) return launch<float, __nv_bfloat16>(x, wr_t, wc_t, out, B, C, H, W, OH, OW, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  Params& p = plan.p;
+  static const int kInU8[] = {8, 4}, kInF32[] = {4, 2}, kOutBf16[] = {8, 4, 2},
+                   kOutF32[] = {4};
+  p.in_vec = in_dtype == 0 ? widest(x, p.W * C, 1, kInU8, 2) : widest(x, p.W * C, 4, kInF32, 2);
+  p.out_vec = out_dtype == 1 ? widest(out, p.OW * C, 2, kOutBf16, 3)
+                             : widest(out, p.OW * C, 4, kOutF32, 1);
+  if (plan.smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  void* args[] = {const_cast<void**>(&x), &out, &p};
+  err = cudaLaunchKernel(fn, dim3(plan.ctas), dim3(kThreads), args, plan.smem,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// What a call with these shapes launches: info[0] registers per thread,
+// [1] local-memory (spill) bytes per thread, [2] dynamic shared memory bytes,
+// [3] CTAs, [4] output rows per CTA, [5] threads per CTA, [6] the shared
+// memory a CTA may have on this device. Returns a cudaError_t; when the plan
+// exceeds that limit, cudaErrorInvalidValue with info[2] and info[6] filled.
+int crfr_resample_info(int in_dtype, int out_dtype, int B, int C, const crfr_band* ops, int n_ops,
+                       int rows, int span, int in_span, int* info) {
+  const void* fn = kernel_for(in_dtype, out_dtype, n_ops == 4);
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  Plan plan;
+  info[6] = limit;
+  const int in_bytes = in_dtype == 0 ? 1 : 4;
+  if (!make_plan(B, C, in_bytes, ops, n_ops, rows, span, in_span, limit, &plan)) {
+    // report what the plan would need, whatever the limit
+    info[2] = make_plan(B, C, in_bytes, ops, n_ops, rows, span, in_span, 0x7fffffff, &plan)
+                  ? plan.smem : -1;
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  info[2] = plan.smem;
+  info[3] = plan.ctas;
+  info[4] = plan.p.rows;
+  info[5] = kThreads;
+  return 0;
 }
 
 const char* crfr_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+
+#ifdef CRFR_PHASE_CLOCK
+// Where the kernel records its phase clock: 8 words per CTA, or nullptr.
+int crfr_resample_phase_clock(void* buf) {
+  return static_cast<int>(cudaMemcpyToSymbol(crfr_phase_clock_buf, &buf, sizeof(buf)));
+}
+#endif
 
 }  // extern "C"

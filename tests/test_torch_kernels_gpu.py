@@ -31,24 +31,42 @@ def _pixels(shape, dtype, device, seed=0):
     return torch.randint(0, 256, shape, generator=g, device=device).to(dtype)
 
 
+@pytest.mark.parametrize("b", [1, 64, 257])
+@pytest.mark.parametrize("low", [16, 15, 8])
 @pytest.mark.parametrize("out_dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float32])
 @pytest.mark.parametrize("mode", ["pil", "cv2"])
-def test_degrade_kernel_matches_plain(cuda, mode, in_dtype, out_dtype, atol):
-    x = _pixels((64, 112, 112, 3), in_dtype, cuda)
+def test_degrade_kernel_matches_plain(cuda, mode, in_dtype, out_dtype, atol, low, b):
+    x = _pixels((b, 112, 112, 3), in_dtype, cuda, seed=b + low)
     before = fp.fused_degrade_normalize.launches
-    got = fp.fused_degrade_normalize(x, 16, mode, out_dtype)
-    want = fp.fused_degrade_normalize_reference(x, 16, mode, out_dtype)
+    got = fp.fused_degrade_normalize(x, low, mode, out_dtype)
+    want = fp.fused_degrade_normalize_reference(x, low, mode, out_dtype)
     torch.cuda.synchronize()
     assert fp.fused_degrade_normalize.launches == before + 1
     assert got.dtype == out_dtype and got.is_contiguous()
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
 
 
+@pytest.mark.parametrize("rows", [112, 57, 28, 16, 7, 1])
+@pytest.mark.parametrize("low,mode", [(16, "pil"), (15, "cv2")])
+def test_degrade_kernel_any_band_height(cuda, low, mode, rows):
+    """Bands of any number of output rows, a last band cut short included."""
+    x = _pixels((5, 112, 112, 3), torch.uint8, cuda, seed=rows)
+    key = fp.operator_key(112, 112, low, mode)
+    got = fp._launch(x, key, 112, 112, torch.float32, "t", rows=rows)
+    want = fp.fused_degrade_normalize_reference(x, low, mode, torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float32])
 @pytest.mark.parametrize("shape,out_hw", [((8, 160, 140, 3), (112, 112)),
-                                          ((5, 37, 200, 3), (112, 96))])
-def test_resize_kernel_matches_plain(cuda, shape, out_hw):
-    x = _pixels(shape, torch.float32, cuda)
+                                          ((5, 37, 200, 3), (112, 96)),
+                                          ((3, 64, 50, 3), (29, 31))])
+def test_resize_kernel_matches_plain(cuda, shape, out_hw, in_dtype):
+    """160x140 rows are 420 bytes of uint8 (4-byte loads), 37x200 rows 600
+    (8-byte loads); a 29x31x3 output row is 93 elements (one per store)."""
+    x = _pixels(shape, in_dtype, cuda)
     before = fp.fused_resize_normalize.launches
     got = fp.fused_resize_normalize(x, out_hw, "pil", torch.float32)
     want = fp.fused_resize_normalize_reference(x, out_hw, "pil", torch.float32)
@@ -57,14 +75,80 @@ def test_resize_kernel_matches_plain(cuda, shape, out_hw):
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("out_dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("c", [1, 4])
+def test_kernel_other_channel_counts(cuda, c, out_dtype, atol):
+    x = _pixels((9, 112, 112, c), torch.uint8, cuda, seed=c)
+    got = fp.fused_degrade_normalize(x, 16, "pil", out_dtype)
+    want = fp.fused_degrade_normalize_reference(x, 16, "pil", out_dtype)
+    r = fp.fused_resize_normalize(x, (96, 80), "cv2", out_dtype)
+    r_want = fp.fused_resize_normalize_reference(x, (96, 80), "cv2", out_dtype)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    torch.testing.assert_close(r.float(), r_want.float(), atol=atol, rtol=0)
+
+
+def test_kernel_unaligned_input(cuda):
+    """An input view that starts one byte off a 16-byte boundary takes
+    one-byte loads; the results still equal the plain version."""
+    big = _pixels((2 * 112 * 112 * 3 + 1,), torch.uint8, cuda)
+    x = big[1:].view(2, 112, 112, 3)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    got = fp.fused_degrade_normalize(x, 16, "pil", torch.float32)
+    torch.cuda.synchronize()
+    want = fp.fused_degrade_normalize_reference(x.clone(), 16, "pil", torch.float32)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_preprocess_never_takes_the_plain_version(cuda, monkeypatch):
+    """A CUDA tensor goes to the kernel; the plain versions are for the CPU."""
+    x = _pixels((4, 112, 112, 3), torch.uint8, cuda)
+    y = _pixels((4, 160, 140, 3), torch.uint8, cuda)
+    want = fp.fused_degrade_normalize_reference(x, 16, "pil", torch.float32)
+    want_r = fp.fused_resize_normalize_reference(y, (112, 112), "pil", torch.float32)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("_reference", "fused_degrade_normalize_reference",
+                 "fused_resize_normalize_reference"):
+        monkeypatch.setattr(fp, name, refuse)
+    got = fp.fused_degrade_normalize(x, 16, "pil", torch.float32)
+    got_r = fp.fused_resize_normalize(y, (112, 112), "pil", torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got_r, want_r, atol=1e-4, rtol=0)
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(TypeError, match="uint8 or float32"):
         fp.fused_degrade_normalize(_pixels((1, 16, 16, 3), torch.int32, cuda), 8)
     with pytest.raises(ValueError, match="contiguous"):
         x = _pixels((1, 16, 16, 6), torch.uint8, cuda)[..., ::2]
         fp.fused_degrade_normalize(x, 8)
+    # a band's 13 rows of 20000 x 3 f32 in shared memory: 3 MB, beyond any CTA's share
+    before = fp.fused_resize_normalize.launches
     with pytest.raises(ValueError, match="limit"):
-        fp.fused_resize_normalize(_pixels((1, 400, 400, 3), torch.uint8, cuda), (112, 112))
+        fp.fused_resize_normalize(_pixels((1, 64, 64, 3), torch.uint8, cuda), (112, 20000))
+    assert fp.fused_resize_normalize.launches == before
+
+
+def test_preprocess_launch_plan(cuda):
+    """The main case: one CTA per band of rows of each image, two CTAs' worth
+    of registers on an SM, the plan inside the device's shared memory."""
+    info = fp.resample_info((256, 112, 112, 3), 16, "pil", torch.uint8, torch.bfloat16)
+    rows = fp.DEGRADE_ROWS
+    assert info["rows"] == rows and info["ctas"] == 256 * -(-112 // rows)
+    assert 2 * info["registers"] * info["threads"] <= 65536
+    assert 0 < info["smem_bytes"] <= info["smem_limit"]
+    assert (info["span"], info["in_span"]) == fp.band_spans(fp.operator_key(112, 112, 16, "pil"),
+                                                            rows)
+    resize = fp.resample_info((256, 160, 140, 3), (112, 112))
+    assert 0 < resize["smem_bytes"] <= resize["smem_limit"]
+    assert resize["span"] == resize["in_span"] > 0
+    assert resize["rows"] == fp.RESIZE_ROWS
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fp.resample_info((1, 64, 64, 3), (112, 20000))
 
 
 def _bank(n, m, d, invalid, device, seed=0):
