@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of crfr_torch on one CUDA card: kernels, embed, verify,
-gallery, serve.
+gallery, serve, train, the train CLI.
 
     python3 chip_smoke.py
 
@@ -12,7 +12,9 @@ Phases, each printing one JSON line:
    shapes, and timed beside its bound, the plain version and one library
    call as yardstick. The preprocessing kernels are held against a float64
    product too (TF32 off), with the bound counting the flops the function
-   needs through its banded factors (``needed_flops``). Their cases: the main
+   needs through its banded factors (``needed_flops``) and the bytes of the
+   images, the lows and the band tables of the lows present
+   (``operator_bytes``). Their cases: the main
    one (B=256, 112², uint8 → bf16, low 16, pil), f32 input and output, cv2,
    low 15 (pil and cv2), B=1, the 160×140 → 112² resize and a 37×200 → 112×96
    uint8 resize whose rows are not 16-byte multiples. The main case and the
@@ -24,7 +26,12 @@ Phases, each printing one JSON line:
    and 300 probes at D=1024, which take three probe groups), its entry
    carries the launch plan (registers, spill bytes, shared memory, CTAs,
    probe groups), and its yardstick is ``torch._int_mm``, the int8 product
-   alone;
+   alone. The preprocessing kernel with a low per image (the train step's
+   form): B=512, 112², lows drawn from 8–112, uint8 → bf16 and f32 → f32,
+   pil and cv2, held against its plain version, against float64, and bit
+   for bit against launches of the int form on each low's images; timed
+   beside its bound, the plain version and one ``torch.einsum`` of the
+   gathered per-image operators, and at shorter band heights;
 3. embed: the main path, ``build_embed_pipeline("ir_50")`` at B=256 on
    random uint8 images (IR-50 in bf16, weights from seed 0), with the
    launch counters reset just before one call and read just after (exactly
@@ -50,7 +57,25 @@ Phases, each printing one JSON line:
    those pixels (``/match`` finds them), ``/remove`` (they are gone), and
    ``/gallery`` equal to ``snapshot()``. The preprocessing launches are
    counted over the three ``/embed`` requests alone, and each ``/match``
-   must launch ``bank_tilemax`` exactly once, counted from 0 just before it.
+   must launch ``bank_tilemax`` exactly once, counted from 0 just before it;
+7. train: the casia_arcface preset at full width (IR-50, 10,572 classes,
+   batch 512, bf16 compute, dropout 0.4, per-image lows 8–112 pil, SGD with
+   momentum 0.9, weight decay 5e-4; warmup 0) on seeded random uint8 images
+   on the card: one warm step, then one step with the launch counters reset
+   just before and read just after (exactly one preprocessing launch);
+   loss and gradient norm finite, parameters changed, the head's W float32;
+   then ``run_train_throughput`` (windows of ten steps) with the peak of
+   ``torch.cuda.max_memory_allocated`` and ``run_fit_throughput`` (the user
+   loop on host batches); then one float32 step of ir_18 at 32 px, 4
+   classes, batch 16, per-image lows, s=16, m=0.2, lr 0.01, on
+   ``SyntheticFaces`` images, on the card under ``strict_fp32()`` against
+   the same step on CPU tensors (loss and gradient norm within 1e-4
+   relative, parameters and BN statistics within rtol 1e-3 and atol 1e-4);
+8. cli: ``python -m crfr_torch train --preset casia_arcface`` with 64
+   classes, batch 64 and a checkpoint every 3 steps for ``--max-steps 6``,
+   then ``--resume`` to 9 (it must resume at 6 and end with
+   ``{"final_step": 9}``); a trainer restored from step 6 equals the saved
+   state bit for bit (parameters, BN statistics, momentum buffers, step).
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the exit code is
@@ -61,10 +86,13 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -75,6 +103,8 @@ PEAK_BYTES_PER_S = 3.35e12       # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12           # H100 SXM float32 outside the tensor cores
 PEAK_INT8_OPS = 1979e12          # H100 SXM int8 tensor cores, dense
 B, S, LOW = 256, 112, 16
+TRAIN_B, LOWS = 512, (8, 112)          # casia_arcface: batch 512, degrade_min..degrade_max
+LOWS_NAME = "fused_degrade_normalize (a low per image)"
 BANK_M, BANK_D, BANK_K = 1 << 20, 512, 10
 
 
@@ -177,20 +207,49 @@ def needed_flops(which: str, b: int, c: int, h: int, w: int, arg, mode: str) -> 
     return b * c * per_plane
 
 
+def operator_bytes(fp, keys: list[tuple]) -> int:
+    """Bytes of the band tables (starts and taps) that apply these
+    operators, each distinct 1-D factor once (a square image's H and W
+    factors are one table on the device): what the kernel reads of them."""
+    factors = {f for k in keys for f in fp._factors(k)}
+    return sum(s.nbytes + t.nbytes for s, t in (fp.band_table(*f) for f in factors))
+
+
 def kernel_case(fp, which: str, x: torch.Tensor, arg, mode: str, out_dtype: torch.dtype,
                 timed: bool, rows_sweep: tuple[int, ...] = ()) -> dict:
     """Kernel vs plain version vs float64 on ``x``; times when ``timed``, and
-    at each band height of ``rows_sweep``."""
+    at each band height of ``rows_sweep`` (for a degrade, those no taller
+    than its plan's, the tallest that fits). ``arg`` is a degrade's low, a
+    resize's (oh, ow), or a degrade's (B,) int32 tensor of lows in ``LOWS``,
+    one per image; that form must also equal, bit for bit, launches of the
+    int form on each low's images."""
     kern = getattr(fp, which)
     plain = getattr(fp, which + "_reference")
     b, h, w, c = x.shape
+    per_image = isinstance(arg, torch.Tensor)
     oh, ow = (h, w) if which == "fused_degrade_normalize" else arg
-    key = fp.operator_key(h, w, arg, mode)
-    got = kern(x, arg, mode, out_dtype)
-    want = plain(x, arg, mode, out_dtype)
-    wr, wc = (m.double() for m in fp._operators(key, x.device))
-    exact = (wr @ x.double().permute(0, 3, 1, 2) @ wc.t() - 127.5) / 128.0
-    exact = exact.permute(0, 2, 3, 1)
+    kw = {"lows": LOWS} if per_image else {}
+    call = lambda: kern(x, arg, mode, out_dtype, **kw)  # noqa: E731
+    got = call()
+    want = plain(x, arg, mode, out_dtype, **kw)
+    xf = x.float()
+    if per_image:
+        key = fp.lows_key(h, LOWS, mode)
+        wg = fp._table(key, x.device)[arg.long() - LOWS[0]]       # (B, S, S): W[low] per image
+        exact = torch.einsum("boi,bijc,bpj->bopc", wg.double(), x.double(), wg.double())
+        library = lambda: torch.einsum("boi,bijc,bpj->bopc", wg, xf, wg)  # noqa: E731
+        library_call = ("torch.einsum('boi,bijc,bpj->bopc', W[low], x.float(), W[low]) on "
+                        "the gathered per-image operators, without the epilogue and cast")
+        counts = [(low, int((arg == low).sum())) for low in sorted(set(arg.tolist()))]
+    else:
+        key = fp.operator_key(h, w, arg, mode)
+        wr, wc = fp._operators(key, x.device)
+        exact = torch.einsum("oi,bijc,pj->bopc", wr.double(), x.double(), wc.double())
+        library = lambda: torch.einsum("oi,bijc,pj->bopc", wr, xf, wc)  # noqa: E731
+        library_call = ("torch.einsum('oi,bijc,pj->bopc', Wr, x.float(), Wc): the two "
+                        "dense products, without the epilogue and cast")
+        counts = [(arg, b)]
+    exact = (exact - 127.5) / 128.0
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     err64 = (got.double() - exact).abs().max().item()
@@ -199,41 +258,70 @@ def kernel_case(fp, which: str, x: torch.Tensor, arg, mode: str, out_dtype: torc
     if got.shape != want.shape or got.dtype != out_dtype or not got.is_contiguous():
         raise AssertionError(f"{which}: bad output {got.shape} {got.dtype}")
     if not (err <= tol and err64 <= tol64):
-        raise AssertionError(f"{which} {mode} {list(x.shape)} {x.dtype}->{out_dtype}: "
-                             f"max_abs_err {err} (tol {tol}), vs float64 {err64} (tol {tol64})")
+        raise AssertionError(f"{which} {mode} {list(x.shape)} {x.dtype}->{out_dtype}"
+                             f"{' lows' if per_image else ''}: max_abs_err {err} (tol {tol}), "
+                             f"vs float64 {err64} (tol {tol64})")
     case = {"in": str(x.dtype).split(".")[-1], "out": str(out_dtype).split(".")[-1],
             "shape": [b, h, w, c], "out_hw": [oh, ow], "mode": mode,
-            "max_abs_err": err, "tolerance": tol, "max_abs_err_vs_f64": err64,
-            "plan": fp.resample_info(tuple(x.shape), arg, mode, x.dtype, out_dtype)}
-    if which == "fused_degrade_normalize":
+            "max_abs_err": err, "max_rel_err": err / want.float().abs().max().item(),
+            "tolerance": tol, "max_abs_err_vs_f64": err64,
+            "plan": fp.resample_info(tuple(x.shape), arg, mode, x.dtype, out_dtype, **kw)}
+    if per_image:
+        for low, _ in counts:                # the int form on the same images, bit for bit
+            sel = (arg == low).nonzero()[:, 0]
+            if not torch.equal(kern(x[sel].contiguous(), low, mode, out_dtype), got[sel]):
+                raise AssertionError(f"{which} {mode}: low {low} of a low per image differs "
+                                     f"from the int form's launch")
+        case.update(lows=list(LOWS), distinct_lows=len(counts), equals_int_form=True)
+    elif which == "fused_degrade_normalize":
         case["low"] = arg
     if timed:
-        xf = x.float()
-        flops = needed_flops(which, b, c, h, w, arg, mode)
-        in_bytes = x.numel() * x.element_size() + (oh * h + ow * w) * 4
+        iters = 5 if per_image else 20       # its plain version and einsum take ~1 ms
+        flops = sum(needed_flops(which, n, c, h, w, a, mode) for a, n in counts)
+        in_bytes = (x.numel() * x.element_size() + (arg.numel() * 4 if per_image else 0)
+                    + operator_bytes(fp, [fp.operator_key(h, w, a, mode) for a, _ in counts]))
         out_bytes = got.numel() * got.element_size()
         bms, by = bound(in_bytes, out_bytes, flops)
-        wr32, wc32 = fp._operators(key, x.device)
         case.update(
-            ms=cuda_ms(lambda: kern(x, arg, mode, out_dtype)),
-            host_us=host_us(lambda: kern(x, arg, mode, out_dtype)),
-            plain_ms=cuda_ms(lambda: plain(x, arg, mode, out_dtype)),
-            library_ms=cuda_ms(lambda: torch.einsum("oi,bijc,pj->bopc", wr32, xf, wc32)),
-            library_call="torch.einsum('oi,bijc,pj->bopc', Wr, x.float(), Wc): the two "
-                         "dense products, without the epilogue and cast",
+            ms=cuda_ms(call), host_us=host_us(call),
+            plain_ms=cuda_ms(lambda: plain(x, arg, mode, out_dtype, **kw), iters=iters),
+            library_ms=cuda_ms(library, iters=iters), library_call=library_call,
             bound_ms=bms, bound_by=by, flops=flops, bytes=in_bytes + out_bytes)
         if rows_sweep:
             sweep = {}
             for r in rows_sweep:
-                sweep[str(r)] = cuda_ms(lambda: fp._launch(x, key, oh, ow, out_dtype, which,
-                                                           rows=r))
+                if which == "fused_degrade_normalize" and r > case["plan"]["rows"]:
+                    continue
+                run = lambda: fp._launch(x, key, oh, ow, out_dtype, which, rows=r,  # noqa: E731
+                                         low=arg if per_image else None)
+                sweep[str(r)] = cuda_ms(run)
                 # each output's sums run in the same order whatever the band height
-                if not torch.equal(fp._launch(x, key, oh, ow, out_dtype, which, rows=r), got):
+                if not torch.equal(run(), got):
                     raise AssertionError(f"{which}: bands of {r} rows differ from "
-                                         f"bands of {fp._rows(key, None)}")
+                                         f"the default bands")
             case["ms_by_rows"] = sweep
-            case["cold_ms"], case["cold_ms_runs"] = cold_ms(lambda: kern(x, arg, mode, out_dtype))
+            case["cold_ms"], case["cold_ms_runs"] = cold_ms(call)
     return case
+
+
+def phase_kernels_lows(fp) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(7)
+    u8 = torch.randint(0, 256, (TRAIN_B, S, S, 3), generator=g, device="cuda", dtype=torch.uint8)
+    lows = torch.randint(LOWS[0], LOWS[1] + 1, (TRAIN_B,), generator=g, device="cuda",
+                         dtype=torch.int32)
+    which, sweep = "fused_degrade_normalize", (S, 56, 28, 16)
+    cases = [kernel_case(fp, which, u8, lows, "pil", torch.bfloat16, True, sweep),
+             kernel_case(fp, which, u8.float(), lows, "pil", torch.float32, True, sweep),
+             kernel_case(fp, which, u8, lows, "cv2", torch.bfloat16, False),
+             kernel_case(fp, which, u8.float(), lows, "cv2", torch.float32, False)]
+    plan = {k: cases[0]["plan"][k] for k in ("registers", "spill_bytes", "smem_bytes", "ctas",
+                                             "rows")}
+    return {"name": LOWS_NAME, "route": "cuda",
+            "source": "crfr_torch/ops/csrc/fused_preprocess.cu",
+            "replaces": "crfr/ops/fused_pallas.py:34",
+            "computes": "crfr/train/loop.py:263-278 (the train step's per-image einsum and "
+                        "normalize)", "on_main_path": True,
+            "cases": cases, **_headline(cases[0]), **plan}
 
 
 def phase_kernels(fp) -> list[dict]:
@@ -617,6 +705,138 @@ def phase_serve(fp, bs, model32) -> dict:
             "removed": removed["removed"], "gallery_equals_snapshot": True}
 
 
+def _state_equal(a: dict, b: dict) -> bool:
+    """Two trainer states equal bit for bit: every tensor, the step, the seed."""
+    ta = {**{f"model.{k}": v for k, v in a["model"].items()},
+          **{f"opt.{i}.{k}": v for i, st in a["opt"]["state"].items() for k, v in st.items()}}
+    tb = {**{f"model.{k}": v for k, v in b["model"].items()},
+          **{f"opt.{i}.{k}": v for i, st in b["opt"]["state"].items() for k, v in st.items()}}
+    return (ta.keys() == tb.keys() and a["step"] == b["step"] and a["seed"] == b["seed"]
+            and all(torch.equal(ta[k].cpu(), tb[k].cpu()) for k in ta))
+
+
+def phase_train(fp) -> dict:
+    from crfr_torch.bench.throughput import run_fit_throughput, run_train_throughput
+    from crfr_torch.configs import get_config
+    from crfr_torch.data.synthetic import SyntheticFaces
+    from crfr_torch.device import strict_fp32
+    from crfr_torch.train.loop import Trainer
+
+    cfg = get_config("casia_arcface", ["train.warmup_steps=0"])
+    tr = Trainer(cfg, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.randint(0, 256, (TRAIN_B, S, S, 3), generator=g, device="cuda", dtype=torch.uint8)
+    y = torch.randint(0, cfg.data.num_classes, (TRAIN_B,), generator=g, device="cuda")
+    before = {k: v.detach().clone() for k, v in tr.model.named_parameters()}
+    tr.train_step(x, y)                                        # warm
+    torch.cuda.synchronize()
+    fp.fused_degrade_normalize.launches = 0
+    fp.fused_degrade_normalize.lows_launches = 0
+    fp.fused_resize_normalize.launches = 0
+    m = tr.train_step(x, y)
+    torch.cuda.synchronize()
+    launches = {"fused_degrade_normalize": fp.fused_degrade_normalize.launches,
+                LOWS_NAME: fp.fused_degrade_normalize.lows_launches,
+                "fused_resize_normalize": fp.fused_resize_normalize.launches}
+    loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+    changed = sum(not torch.equal(before[k], v) for k, v in tr.model.named_parameters())
+    w = tr.model.head.weight
+    if launches != {"fused_degrade_normalize": 0, LOWS_NAME: 1, "fused_resize_normalize": 0}:
+        raise AssertionError(f"train: one step launched {launches}, want one degrade with a "
+                             f"low per image")
+    if not (np.isfinite(loss) and np.isfinite(gnorm)):
+        raise AssertionError(f"train: loss {loss}, grad norm {gnorm}")
+    if changed != len(before) or w.dtype != torch.float32 or tuple(w.shape) != (512, 10572):
+        raise AssertionError(f"train: {changed} of {len(before)} parameters changed, "
+                             f"head W {w.dtype} {tuple(w.shape)}")
+    del tr, before, x, y
+    torch.cuda.empty_cache()
+
+    step = run_train_throughput(cfg=cfg, steps=10, repeats=3)
+    fit = run_fit_throughput(cfg=cfg, steps=10)
+
+    # float32 parity: one step on the card against the same step on CPU
+    # tensors, with the loss of tests/test_train.py (s=16, m=0.2) and lr 0.01.
+    # A step of this net moves with the last bits of its input: PReLU's slope
+    # flips on activations within rounding of 0, so two CPU runs that differ
+    # only in thread count part by more than the tolerance at s=64, lr 0.1
+    # (and the card's kernel rounds otherwise than the plain version); here
+    # twelve draws of the lows stayed within 40% of it on the CPU
+    small = get_config("casia_arcface", [
+        "model.backbone=ir_18", "data.image_size=32", "model.input_size=32",
+        "data.num_classes=4", "train.batch_size=16", "model.compute_dtype=float32",
+        "model.dropout=0.0", "train.warmup_steps=0", "data.degrade_max=32",
+        "loss.scale=16.0", "loss.margin=0.2", "train.lr=0.01"])
+    imgs, labels = SyntheticFaces(num_classes=4, image_size=32, seed=0).sample(
+        np.random.default_rng(1), 16)
+    lows = torch.from_numpy(np.random.default_rng(9).integers(8, 33, 16).astype(np.int32))
+    on = {}
+    for dev in ("cuda", "cpu"):
+        t = Trainer(small, device=dev)
+        with strict_fp32():
+            m = t.train_step(imgs, labels, lows=lows)
+        on[dev] = (m["loss"].item(), m["grad_norm"].item(),
+                   {k: v.detach().cpu() for k, v in t.model.state_dict().items()})
+    rel = abs(on["cuda"][0] - on["cpu"][0]) / abs(on["cpu"][0])
+    rel_g = abs(on["cuda"][1] - on["cpu"][1]) / abs(on["cpu"][1])
+    worst = max(((a.float() - on["cpu"][2][k].float()).abs()
+                 - (1e-4 + 1e-3 * on["cpu"][2][k].float().abs())).max().item()
+                for k, a in on["cuda"][2].items())
+    if not (rel <= 1e-4 and rel_g <= 1e-4 and worst <= 0):
+        raise AssertionError(f"train: float32 step on the card vs CPU: loss rel {rel}, "
+                             f"grad norm rel {rel_g}, parameters beyond rtol 1e-3 / "
+                             f"atol 1e-4 by {worst}")
+    return {"phase": "train", "preset": "casia_arcface", "backbone": "ir_50",
+            "classes": cfg.data.num_classes, "batch": TRAIN_B, "compute_dtype": "bfloat16",
+            "dropout": cfg.model.dropout, "lows": list(LOWS), "mode": cfg.data.resize_mode,
+            "launches": launches, "loss": loss, "grad_norm": gnorm,
+            "parameters_changed": changed, "head_dtype": "float32",
+            "imgs_per_s": step.imgs_per_sec, "imgs_per_s_windows": step.imgs_per_sec_windows,
+            "ms_per_step": step.ms_per_step, "first_step_s": step.first_step_seconds,
+            "peak_bytes": step.peak_bytes, "fit_imgs_per_s": fit.imgs_per_sec,
+            "fit_peak_bytes": fit.peak_bytes, "f32_step_loss_rel_card_vs_cpu": rel,
+            "f32_step_grad_norm_rel_card_vs_cpu": rel_g, "f32_step_param_excess": worst}
+
+
+def phase_cli() -> dict:
+    """The train CLI for 6 steps, then resumed to 9, in child processes."""
+    from crfr_torch.configs import get_config
+    from crfr_torch.train.checkpoints import Checkpointer
+    from crfr_torch.train.loop import Trainer
+
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(root), *filter(None, [os.environ.get("PYTHONPATH")])])}
+    with tempfile.TemporaryDirectory() as tmp:
+        ov = ["data.num_classes=64", "train.batch_size=64", "train.checkpoint_every_steps=3",
+              f"train.checkpoint_dir={tmp}/ck"]
+        runs = []
+        t0 = time.perf_counter()
+        for extra in (["--max-steps", "6"], ["--max-steps", "9", "--resume"]):
+            r = subprocess.run([sys.executable, "-m", "crfr_torch", "train", "--preset",
+                                "casia_arcface", *ov, *extra], cwd=root, env=env,
+                               capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"cli: exit {r.returncode}\n{r.stdout[-2000:]}\n"
+                                     f"{r.stderr[-4000:]}")
+            runs.append(r)
+        wall = time.perf_counter() - t0
+        finals = [json.loads(r.stdout.strip().splitlines()[-1]) for r in runs]
+        if finals != [{"final_step": 6}, {"final_step": 9}] or \
+                "resumed from step 6" not in runs[1].stderr:
+            raise AssertionError(f"cli: {finals}, second run's stderr {runs[1].stderr[-500:]}")
+        ck = Checkpointer(f"{tmp}/ck")
+        saved = ck.restore(step=6)
+        tr = Trainer(get_config("casia_arcface", ov), device="cuda")
+        tr.state = saved
+        if not _state_equal(tr.state, saved) or tr.host_step != 6:
+            raise AssertionError("cli: a trainer restored from step 6 differs from the saved state")
+        steps = ck.steps()
+    return {"phase": "cli", "final_steps": [f["final_step"] for f in finals],
+            "resumed_from": 6, "checkpoints": steps, "restored_equals_saved": True,
+            "wall_s_two_runs": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -636,7 +856,7 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0})
 
-    kernels = phase_kernels(fp) + [phase_kernels_bank(bs)]
+    kernels = phase_kernels(fp) + [phase_kernels_bank(bs), phase_kernels_lows(fp)]
     emit({"phase": "kernels", "cases": sum(len(k["cases"]) for k in kernels)})
     embed, state = phase_embed(fp)
     emit({**embed, "card": smi})
@@ -645,12 +865,19 @@ def main() -> int:
     emit({**gallery, "card": smi})
     serve = phase_serve(fp, bs, state["model32"])
     emit(serve)
+    del state
+    torch.cuda.empty_cache()
+    train = phase_train(fp)
+    emit({**train, "card": smi})
+    emit(phase_cli())
     # launches on each kernel's own main path: embed for the preprocessing
-    # kernels, the gallery scan for bank_tilemax
+    # kernels, the gallery scan for bank_tilemax, a train step for the
+    # preprocessing kernel with a low per image
     paths = {"embed": embed["launches"], "gallery": gallery["launches"],
-             "serve": serve["launches"]}
+             "serve": serve["launches"], "train": train["launches"]}
+    own = {"bank_tilemax": gallery, LOWS_NAME: train}
     for k in kernels:
-        k["launches"] = (gallery if k["name"] == "bank_tilemax" else embed)["launches"][k["name"]]
+        k["launches"] = own.get(k["name"], embed)["launches"][k["name"]]
         k["launches_by_path"] = {p: v[k["name"]] for p, v in paths.items() if k["name"] in v}
     emit({"kernels": kernels, "card": smi, "total_s": time.perf_counter() - t_start})
     print(smi, flush=True)

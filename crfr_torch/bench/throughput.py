@@ -1,5 +1,7 @@
-"""Embedding-extraction throughput on the CUDA device (the embed half of
-crfr/bench/throughput.py).
+"""Throughput on the CUDA device (crfr/bench/throughput.py): embedding
+extraction (``run_throughput``) and training (``run_train_throughput``, the
+step on a batch already on the device; ``run_fit_throughput``, the user's
+loop ``Trainer.fit`` on host batches).
 
 The hot path: raw uint8 (B, 112, 112, 3) → 112→16→112 bicubic probe
 degradation + (x − 127.5)/128 + bf16 cast in one launch of the fused
@@ -11,7 +13,15 @@ to bf16 before its einsum; here the kernel computes the degrade in float32
 and casts only its output, as the reference's Pallas kernel does.
 
 Timing: ``steps`` calls queued back to back, one ``torch.cuda.synchronize``
-fence at the end; warmup excluded; the best of ``repeats``.
+fence at the end; warmup excluded. Embedding reports the best of
+``repeats`` windows; training reports the images of all its windows over
+their total time, so a stall in any window shows, with each window's rate
+beside it for the spread.
+
+A train step: raw uint8 batch → one launch of the preprocessing kernel
+(each image degraded to its own random low in [degrade_min, degrade_max],
+normalized, cast to bf16) → IR backbone forward and backward under bf16
+autocast → ArcFace CE in float32 → clip/decay/SGD (``train.loop.Trainer``).
 """
 
 from __future__ import annotations
@@ -34,6 +44,117 @@ class BenchResult:
     compile_seconds: float               # first call: cuDNN autotune, build
     per_batch_ms: float
     device: str
+
+
+@dataclass
+class TrainBenchResult:
+    imgs_per_sec: float                  # all windows' images over their total time
+    imgs_per_sec_windows: list[float]    # each window of ``steps`` steps
+    batch: int
+    steps: int
+    first_step_seconds: float            # cuDNN autotune, kernel build, first step
+    ms_per_step: float
+    peak_bytes: int                      # torch.cuda.max_memory_allocated over the steps
+    device: str
+
+
+def train_config(backbone: str = "ir_50", num_classes: int = 10572, image_size: int = 112,
+                 batch: int = 256):
+    """The casia_arcface preset with these sizes and no warmup (the
+    reference bench's config: warmup 0, logging off)."""
+    from crfr_torch.configs import get_config
+
+    return get_config("casia_arcface", [
+        f"model.backbone={backbone}", f"data.num_classes={num_classes}",
+        f"data.image_size={image_size}", f"model.input_size={image_size}",
+        f"train.batch_size={batch}", "train.warmup_steps=0", f"train.log_every={10 ** 9}"])
+
+
+def _fence(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _name(dev: torch.device) -> str:
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def run_train_throughput(batch: int = 256, steps: int = 10, repeats: int = 3,
+                         backbone: str = "ir_50", num_classes: int = 10572,
+                         image_size: int = 112, device: str | torch.device = "cuda",
+                         seed: int = 0, cfg=None) -> TrainBenchResult:
+    """Train steps on one device-resident batch of seeded random uint8
+    images and labels: the step alone (degrade, forward, backward, SGD),
+    without the host feed. ``cfg`` replaces the config built from the
+    sizes."""
+    from crfr_torch.train.loop import Trainer
+
+    dev = resolve_device(device)
+    cfg = cfg or train_config(backbone, num_classes, image_size, batch)
+    batch, size = cfg.train.batch_size, cfg.data.image_size
+    tr = Trainer(cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(0, 256, (batch, size, size, 3), generator=g, device=dev, dtype=torch.uint8)
+    y = torch.randint(0, cfg.data.num_classes, (batch,), generator=g, device=dev)
+    t0 = time.perf_counter()
+    tr.train_step(x, y)
+    _fence(dev)
+    first = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    seconds = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            m = tr.train_step(x, y)
+        _fence(dev)
+        seconds.append(time.perf_counter() - t0)
+    if not (torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])):
+        raise AssertionError(f"train step: loss {m['loss']}, grad norm {m['grad_norm']}")
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    ips = batch * steps * repeats / sum(seconds)
+    return TrainBenchResult(imgs_per_sec=ips,
+                            imgs_per_sec_windows=[batch * steps / s for s in seconds],
+                            batch=batch, steps=steps, first_step_seconds=first,
+                            ms_per_step=1e3 * batch / ips, peak_bytes=peak, device=_name(dev))
+
+
+def run_fit_throughput(batch: int = 256, steps: int = 20, backbone: str = "ir_50",
+                       num_classes: int = 10572, image_size: int = 112,
+                       device: str | torch.device = "cuda", seed: int = 0,
+                       cfg=None) -> TrainBenchResult:
+    """``Trainer.fit`` on host uint8 batches (fed by ``train.feed``): what
+    a user's loop reaches, to set beside ``run_train_throughput``."""
+    import numpy as np
+
+    from crfr_torch.train.loop import Trainer
+
+    dev = resolve_device(device)
+    cfg = cfg or train_config(backbone, num_classes, image_size, batch)
+    batch, size = cfg.train.batch_size, cfg.data.image_size
+    tr = Trainer(cfg, device=dev)
+    rng = np.random.default_rng(seed)
+    imgs = rng.integers(0, 256, (batch, size, size, 3)).astype(np.uint8)
+    labels = rng.integers(0, cfg.data.num_classes, batch).astype(np.int32)
+
+    def batches(n):
+        for _ in range(n):
+            yield imgs, labels
+
+    t0 = time.perf_counter()
+    tr.fit(batches(2), max_steps=2)
+    _fence(dev)
+    first = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr.fit(batches(steps), max_steps=steps)
+    _fence(dev)
+    ips = batch * steps / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    return TrainBenchResult(imgs_per_sec=ips, imgs_per_sec_windows=[ips], batch=batch,
+                            steps=steps, first_step_seconds=first, ms_per_step=1e3 * batch / ips,
+                            peak_bytes=peak, device=_name(dev))
 
 
 def build_embed_pipeline(backbone_name: str = "ir_50", degrade_to: int = 16,

@@ -1,15 +1,20 @@
-"""Where the device time goes: ``trace_embed`` of crfr/bench/xprof_check.py,
-with torch.profiler in place of jax.profiler, and ``trace_gallery`` for
-the int8 gallery scan.
+"""Where the device time goes: ``trace_embed`` and ``trace_train`` of
+crfr/bench/xprof_check.py, with torch.profiler in place of jax.profiler, and
+``trace_gallery`` for the int8 gallery scan.
 
     python -m crfr_torch.bench.xprof_check [--batch 256] [--steps 10]
     python -m crfr_torch.bench.xprof_check --path gallery [--batch 256]
+    python -m crfr_torch.bench.xprof_check --path train [--batch 512] [--steps 5]
 
 ``embed`` runs ``steps`` back-to-back calls of the bf16 embed pipeline
 (``bench.throughput.build_embed_pipeline``); ``gallery`` runs ``steps``
 256-probe top-10 scans of a 2^20 x 512 int8 bank on each path, the fused
 three-phase top-k (``ops.bank_scan.bank_topk_fused``, the CUDA default) and
-the scan (``eval.bank.streaming_topk_q``). Each runs on one CUDA card, once
+the scan (``eval.bank.streaming_topk_q``); ``train`` runs ``steps`` train
+steps of the casia_arcface preset (``bench.throughput.train_config``) on a
+device-resident batch, and splits the step's kernels into its own groups
+(convolutions forward and backward, BN, elementwise, the head's GEMMs, the
+CE, the optimizer, the preprocessing). Each runs on one CUDA card, once
 untraced and once under the profiler, warmup outside both, and prints one
 JSON line: wall ms per call (untraced and traced), device busy ms per call
 (the union of kernel intervals in the trace), the idle share of the traced
@@ -46,9 +51,27 @@ _GROUPS = (
 )
 
 
-def _group(name: str) -> str:
+# a train step's groups: the conv passes by direction, BN forward and
+# backward, PReLU forward and backward, the remaining reductions (PReLU's
+# alpha gradients, the norms), the head's GEMMs, the CE's softmax, the
+# optimizer's multi-tensor kernels, the preprocessing kernel
+_TRAIN_GROUPS = (
+    ("preprocess", ("resample_normalize", "degrade_lows")),
+    ("optimizer", ("multi_tensor", "foreach", "multitensor")),
+    ("conv_backward", ("dgrad", "wgrad", "bprop", "backward_data", "backward_filter")),
+    ("conv_forward", ("conv", "fprop")),
+    ("batch_norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw", "bn_")),
+    ("prelu", ("prelu",)),
+    ("head_gemm", ("gemm", "gemv", "cutlass")),
+    ("ce", ("softmax", "logsumexp")),
+    ("reduce", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "where", "copy", "fill")),
+)
+
+
+def _group(name: str, groups=_GROUPS) -> str:
     low = name.lower()
-    for group, keys in _GROUPS:
+    for group, keys in groups:
         if any(k in low for k in keys):
             return group
     return "other"
@@ -70,7 +93,7 @@ def _card() -> str:
                           check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def _profile(call, steps: int, dev: torch.device, top: int) -> dict:
+def _profile(call, steps: int, dev: torch.device, top: int, groups=_GROUPS) -> dict:
     """Untraced and traced windows of ``steps`` calls, warmup outside both."""
     def window() -> float:
         torch.cuda.synchronize(dev)
@@ -95,12 +118,13 @@ def _profile(call, steps: int, dev: torch.device, top: int) -> dict:
         raise RuntimeError("the profiler recorded no kernels on the device")
 
     by_name: dict[str, list[float]] = {}
-    groups: dict[str, float] = {}
+    by_group: dict[str, float] = {}
     for e in kernels:
         acc = by_name.setdefault(e["name"], [0.0, 0])
         acc[0] += e["dur"]
         acc[1] += 1
-        groups[_group(e["name"])] = groups.get(_group(e["name"]), 0.0) + e["dur"]
+        g = _group(e["name"], groups)
+        by_group[g] = by_group.get(g, 0.0) + e["dur"]
     busy_ms = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in kernels]) / 1e3 / steps
     heaviest = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {
@@ -110,7 +134,7 @@ def _profile(call, steps: int, dev: torch.device, top: int) -> dict:
         "idle_share_traced": 1.0 - busy_ms / traced_ms,
         "kernel_launches": len(kernels) / steps,
         "group_ms": {k: v / 1e3 / steps for k, v in
-                     sorted(groups.items(), key=lambda kv: -kv[1])},
+                     sorted(by_group.items(), key=lambda kv: -kv[1])},
         "heaviest": [{"name": n[:120], "ms": t / 1e3 / steps, "calls": c / steps}
                      for n, (t, c) in heaviest],
     }
@@ -179,15 +203,49 @@ def trace_gallery(probes: int = 256, rows: int = 1 << 20, dim: int = 512, k: int
     return out
 
 
+def trace_train(batch: int = 512, steps: int = 5, backbone: str = "ir_50",
+                num_classes: int = 10572, top: int = 16, device: str | torch.device = "cuda",
+                seed: int = 0) -> dict:
+    """One train step per call on a device-resident batch of seeded random
+    uint8 images (``bench.throughput.run_train_throughput``'s inputs)."""
+    from crfr_torch.bench.throughput import train_config
+    from crfr_torch.train.loop import Trainer
+
+    dev = _cuda(device)
+    cfg = train_config(backbone, num_classes, 112, batch)
+    tr = Trainer(cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(0, 256, (batch, 112, 112, 3), generator=g, device=dev, dtype=torch.uint8)
+    y = torch.randint(0, num_classes, (batch,), generator=g, device=dev)
+    r = _profile(lambda: tr.train_step(x, y), steps, dev, top, _TRAIN_GROUPS)
+    return {
+        "backbone": backbone, "batch": batch, "classes": num_classes, "steps": steps,
+        "preset": "casia_arcface", "card": _card(),
+        "wall_ms_per_step": r["wall_ms"],
+        "traced_wall_ms_per_step": r["traced_wall_ms"],
+        "device_busy_ms_per_step": r["device_busy_ms"],
+        "idle_share_traced": r["idle_share_traced"],
+        "kernel_launches_per_step": r["kernel_launches"],
+        "group_ms_per_step": r["group_ms"],
+        "heaviest": [{"name": h["name"], "ms_per_step": h["ms"], "calls_per_step": h["calls"]}
+                     for h in r["heaviest"]],
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("embed", "gallery"), default="embed")
-    ap.add_argument("--batch", type=int, default=256, help="images or probes per call")
-    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--path", choices=("embed", "gallery", "train"), default="embed")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="images or probes per call (256; 512 for train)")
+    ap.add_argument("--steps", type=int, default=0, help="calls per window (10; 5 for train)")
     ap.add_argument("--backbone", default="ir_50")
     args = ap.parse_args()
-    out = (trace_embed(args.batch, args.steps, args.backbone) if args.path == "embed"
-           else trace_gallery(args.batch, steps=args.steps))
+    if args.path == "embed":
+        out = trace_embed(args.batch or 256, args.steps or 10, args.backbone)
+    elif args.path == "gallery":
+        out = trace_gallery(args.batch or 256, steps=args.steps or 10)
+    else:
+        out = trace_train(args.batch or 512, args.steps or 5, args.backbone)
     print(json.dumps(out), flush=True)
 
 

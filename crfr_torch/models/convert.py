@@ -13,6 +13,11 @@ leaf names and layouts change:
 - BN ``scale``/``bias``/``mean``/``var`` → ``weight``/``bias``/
   ``running_mean``/``running_var`` (+ ``num_batches_tracked`` = 0)
 - PReLU ``alpha`` → ``weight``
+
+``train_state_from_jax`` does the same for a ``crfr`` ``Trainer``'s
+``params`` and ``batch_stats`` (paths ``backbone/...`` and ``head/weight``):
+a ``state_dict`` for ``crfr_torch.train.loop.FaceTrainModel``, the head's
+W kept as (D, C).
 """
 
 from __future__ import annotations
@@ -50,4 +55,16 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
         else:
             raise KeyError(f"{path}: no counterpart in crfr_torch")
         sd[f"{prefix}.{name}"] = torch.from_numpy(np.ascontiguousarray(arr))
+    return sd
+
+
+def train_state_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """A ``crfr`` trainer's parameters and BN statistics, keyed by their
+    '/'-joined nnx paths, → ``FaceTrainModel.state_dict()``."""
+    backbone = {k[len("backbone/"):]: v for k, v in flat.items() if k.startswith("backbone/")}
+    rest = set(flat) - {f"backbone/{k}" for k in backbone} - {"head/weight"}
+    if rest:
+        raise KeyError(f"{sorted(rest)}: no counterpart in crfr_torch")
+    sd = {f"backbone.{k}": v for k, v in params_from_jax(backbone).items()}
+    sd["head.weight"] = torch.from_numpy(np.array(flat["head/weight"], dtype=np.float32))
     return sd

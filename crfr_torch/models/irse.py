@@ -16,12 +16,28 @@ without a copy. The flatten before ``out_linear`` is taken over an NHWC view
 reference's row order and the weights carry across with a plain transpose
 (``crfr_torch.models.convert``). With ``dtype=torch.bfloat16`` everything
 but the final BN1d runs in bf16; BN1d stays float32, as in the reference.
+
+Training (``model.train()``) follows flax's BatchNorm: the batch is
+normalised by its own biased variance, and the running statistics move as
+``new = 0.9·old + 0.1·batch`` with the *biased* batch variance, where
+``torch.nn.BatchNorm*`` would take the unbiased one (off by n/(n−1): 8/7
+for BN1d at B=8). Dropout draws its mask from the generator passed to
+``forward`` (the trainer seeds one per step). ``remat=True`` recomputes each
+residual block on the backward pass (``torch.utils.checkpoint``), without
+moving the running statistics a second time. For bf16 compute with float32
+master weights, build with ``dtype=torch.float32`` and run under
+``torch.autocast``, as ``crfr_torch.train.loop`` does.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 _DEPTH_CONFIGS: dict[str, tuple[tuple[int, int], ...]] = {
     "18": ((64, 2), (128, 2), (256, 2), (512, 2)),
@@ -33,6 +49,69 @@ _DEPTH_CONFIGS: dict[str, tuple[tuple[int, int], ...]] = {
 
 # flax BatchNorm momentum 0.9 (weight of the old running value) is torch's 0.1
 _BN = dict(eps=1e-5, momentum=0.1)
+_remat = threading.local()   # .recomputing: a remat block's backward recomputes its forward
+
+
+@contextlib.contextmanager
+def _recomputing():
+    saved = getattr(_remat, "recomputing", False)
+    _remat.recomputing = True
+    try:
+        yield
+    finally:
+        _remat.recomputing = saved
+
+
+def _remat_contexts():
+    return contextlib.nullcontext(), _recomputing()
+
+
+class _FlaxStats:
+    """Train-mode BN whose running variance takes the biased batch variance.
+
+    torch's kernel updates ``running_var`` with ``(1−m)·rv + m·var·n/(n−1)``.
+    Handing it ``rv·n/(n−1)`` and scaling its result by (n−1)/n gives
+    ``(1−m)·rv + m·var``, flax's update: a few operations on C values and
+    no extra pass over the activations. (The kernel gets a copy: autograd
+    keeps what it was given for the backward pass.)"""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        n = x.numel() // x.shape[1]
+        if n < 2:
+            raise ValueError(f"{type(self).__name__}: training needs more than one value "
+                             f"per channel, got input of shape {tuple(x.shape)}")
+        # a remat block's recomputation runs the same call on copies it drops
+        frozen = getattr(_remat, "recomputing", False)
+        with torch.no_grad():
+            rm = self.running_mean.clone() if frozen else self.running_mean
+            rv = self.running_var * (n / (n - 1))
+        y = F.batch_norm(x, rm, rv, self.weight, self.bias, True, self.momentum, self.eps)
+        if not frozen:
+            with torch.no_grad():
+                torch.mul(rv, (n - 1) / n, out=self.running_var)
+        return y
+
+
+class BatchNorm2d(_FlaxStats, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm1d(_FlaxStats, nn.BatchNorm1d):
+    pass
+
+
+def _dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax's ``Dropout``: keep with probability 1−p and scale by 1/(1−p);
+    the mask from ``generator`` (torch's own stream when None)."""
+    if p <= 0.0:
+        return x
+    if generator is None:
+        return F.dropout(x, p, True)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class PReLU(nn.PReLU):
@@ -61,11 +140,11 @@ class BottleneckIR(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int, stride: int, use_se: bool):
         super().__init__()
-        self.bn0 = nn.BatchNorm2d(in_ch, **_BN)
+        self.bn0 = BatchNorm2d(in_ch, **_BN)
         self.conv1 = nn.Conv2d(in_ch, out_ch, 3, 1, 1, bias=False)
         self.prelu = PReLU(out_ch)
         self.conv2 = nn.Conv2d(out_ch, out_ch, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(out_ch, **_BN)
+        self.bn2 = BatchNorm2d(out_ch, **_BN)
         self.se = SEModule(out_ch, 16) if use_se else None
         if in_ch == out_ch and stride == 1:
             self.shortcut_conv = None
@@ -73,7 +152,7 @@ class BottleneckIR(nn.Module):
         else:
             # flax "SAME" for 1×1 at stride 2 on even sizes pads nothing
             self.shortcut_conv = nn.Conv2d(in_ch, out_ch, 1, stride, 0, bias=False)
-            self.shortcut_bn = nn.BatchNorm2d(out_ch, **_BN)
+            self.shortcut_bn = BatchNorm2d(out_ch, **_BN)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         r = self.bn2(self.conv2(self.prelu(self.conv1(self.bn0(x)))))
@@ -90,15 +169,17 @@ class IRBackbone(nn.Module):
 
     def __init__(self, depth: str = "50", use_se: bool = False,
                  embedding_dim: int = 512, dropout: float = 0.4,
-                 input_size: int = 112, dtype: torch.dtype = torch.float32):
+                 input_size: int = 112, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         if depth not in _DEPTH_CONFIGS:
             raise ValueError(f"depth {depth!r} not in {sorted(_DEPTH_CONFIGS)}")
         if input_size % 16 != 0:
             raise ValueError("input_size must be divisible by 16")
         self.dtype = dtype
+        self.remat = remat
         self.input_conv = nn.Conv2d(3, 64, 3, 1, 1, bias=False)
-        self.input_bn = nn.BatchNorm2d(64, **_BN)
+        self.input_bn = BatchNorm2d(64, **_BN)
         self.input_prelu = PReLU(64)
         blocks, stage_ends, in_ch = [], [], 64
         for channels, units in _DEPTH_CONFIGS[depth]:
@@ -109,10 +190,10 @@ class IRBackbone(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self._stage_ends = tuple(stage_ends)
         feat = input_size // 16
-        self.out_bn = nn.BatchNorm2d(512, **_BN)
+        self.out_bn = BatchNorm2d(512, **_BN)
         self.out_dropout = nn.Dropout(dropout)
         self.out_linear = nn.Linear(512 * feat * feat, embedding_dim)
-        self.out_feat_bn = nn.BatchNorm1d(embedding_dim, **_BN)
+        self.out_feat_bn = BatchNorm1d(embedding_dim, **_BN)
         self.to(dtype)
         self.out_feat_bn.float()
         self.to(memory_format=torch.channels_last)
@@ -121,11 +202,18 @@ class IRBackbone(nn.Module):
         x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
         return self.input_prelu(self.input_bn(self.input_conv(x)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """``generator``: dropout's draws in train mode."""
         x = self._stem(x)
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x)
-        x = self.out_dropout(self.out_bn(x))
+            if remat:
+                x = checkpoint(blk, x, use_reentrant=False, context_fn=_remat_contexts)
+            else:
+                x = blk(x)
+        x = self.out_bn(x)
+        if self.training:
+            x = _dropout(x, self.out_dropout.p, generator)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)   # H·W·C order
         x = self.out_linear(x)
         return self.out_feat_bn(x.float())
@@ -160,7 +248,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 def build_backbone(name: str = "ir_50", *, embedding_dim: int = 512,
                    dropout: float = 0.4, input_size: int = 112,
                    dtype: torch.dtype = torch.float32,
-                   generator: torch.Generator | None = None) -> IRBackbone:
+                   generator: torch.Generator | None = None,
+                   remat: bool = False) -> IRBackbone:
     """'ir_50' / 'ir_se_101' → IRBackbone with weights drawn from
     ``generator`` (seed 0 when None), on the CPU, in train mode like any
     fresh module: call ``.to(device).eval()`` for inference."""
@@ -174,7 +263,7 @@ def build_backbone(name: str = "ir_50", *, embedding_dim: int = 512,
         depth = "100"
     model = IRBackbone(depth=depth, use_se="se" in parts,
                        embedding_dim=embedding_dim, dropout=dropout,
-                       input_size=input_size, dtype=dtype)
+                       input_size=input_size, dtype=dtype, remat=remat)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     return init_weights(model, generator)

@@ -98,6 +98,12 @@ def degrade_matrix(size: int, low: int, mode: str = "pil") -> np.ndarray:
     return (up @ down).astype(np.float32)
 
 
+def degrade_table(size: int, lows, mode: str = "pil") -> np.ndarray:
+    """(L, size, size) f32: ``degrade_matrix(size, low, mode)`` for each
+    low of ``lows``, stacked (the training step's operator table)."""
+    return np.stack([degrade_matrix(size, int(low), mode) for low in lows])
+
+
 def _spatial(img: torch.Tensor) -> tuple[int, int]:
     if img.ndim not in (2, 3, 4):
         raise ValueError(f"rank-{img.ndim} input not supported")
@@ -158,3 +164,19 @@ def degrade_updown(img: torch.Tensor, low: int, mode: str = "pil",
         return resize_bicubic(small, (h, w), mode, u8_pipeline=True)
     return _apply_separable(img, degrade_matrix(h, low, mode),
                             degrade_matrix(w, low, mode))
+
+
+def random_degrade(img: torch.Tensor, generator: torch.Generator, low_min: int, low_max: int,
+                   mode: str = "pil") -> torch.Tensor:
+    """Degrade a batch (or one image) to one ``low`` drawn uniformly from
+    [low_min, low_max] by ``generator`` (on the image's device): the
+    composed operators of every low stacked as one table, indexed by the
+    draw on the device, so nothing waits for the host."""
+    size = img.shape[-3] if img.ndim >= 3 else img.shape[0]
+    table = torch.from_numpy(degrade_table(size, range(low_min, low_max + 1), mode))
+    x = _float(img)
+    table = table.to(device=x.device, dtype=x.dtype)
+    idx = torch.randint(0, low_max - low_min + 1, (), generator=generator,
+                        device=generator.device)
+    w = table[idx.to(x.device)]
+    return torch.einsum(_SEPARABLE[img.ndim], w, x, w)

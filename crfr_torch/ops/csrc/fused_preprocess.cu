@@ -47,6 +47,17 @@
 // CTAs, at most two on an SM, each running its passes one after another
 // behind barriers (PERF.md; crfr_torch/bench/preprocess_phases.py times each).
 //
+// A low per image (degrade_lows_kernel, the train step's form; crfr's train
+// step computes it as einsum('boi,bijc,bpj->bopc', W[idx], x, W[idx]),
+// crfr/train/loop.py:263-278): the host builds the four band tables of
+// every low of the range once, and a device table of their structs; each
+// CTA reads its image's low, copies that low's four structs over p.op and
+// runs the same band. The shared-memory plan holds the largest low's
+// buffers, so large lows (up to S) take shorter bands (56 rows for uint8 at
+// 112², 28 for f32) and the bands run as several waves. Each output's sums
+// are the int form's, bit for bit. At B=512, 112², uint8 -> bf16 it must
+// move 57.8 MB, 0.017 ms at 3.35 TB/s: bound by bytes.
+//
 // Plain C interface, built with nvcc into a shared library and called
 // through ctypes (crfr_torch/ops/_build.py). The caller allocates `out` and
 // passes PyTorch's current stream; nothing here allocates or synchronises.
@@ -54,6 +65,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 extern "C" {
 // One 1-D bicubic factor as a band table (device pointers).
@@ -77,6 +90,11 @@ struct Params {
   int low_off;      // degrade: float offset of the [span][low*C] buffer
   int in_vec;       // input elements per load in (a)
   int out_vec;      // outputs per store in (d)
+  // a low per image (degrade_lows_kernel): image i takes the four factors
+  // table[4 * (lows[i] - low0) ...], for lows in [low0, low0 + n_lows)
+  const crfr_band* table;
+  const int* lows;
+  int low0, n_lows;
 };
 
 // Walks the items (row, column) of a grid `cols` wide, kThreads apart,
@@ -428,12 +446,13 @@ __device__ __forceinline__ void vertical_store_by_width(int vec, const float* __
   }
 }
 
-// grid (B * bands); block kThreads; dynamic shared memory from make_plan().
-// The vertical factor into the output (up along H, or the resize's H) names
-// the rows a band reads before its last pass: [lo, lo + nl), nl <= span.
+// One CTA's band. grid (B * bands); block kThreads; dynamic shared memory
+// from make_plan(). The vertical factor into the output (up along H, or the
+// resize's H) names the rows a band reads before its last pass:
+// [lo, lo + nl), nl <= span.
 template <typename Tin, typename Tout, bool kDegrade>
-__global__ void __launch_bounds__(kThreads)
-resample_normalize_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, const Params p) {
+__device__ __forceinline__ void resample_band(const Tin* __restrict__ x, Tout* __restrict__ out,
+                                              const Params& p) {
   extern __shared__ __align__(16) float smem[];
   phase_clock(0);
   const int img = blockIdx.x / p.bands;
@@ -478,6 +497,38 @@ resample_normalize_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, con
   __syncthreads();
   phase_clock(5);
 #endif
+}
+
+template <typename Tin, typename Tout, bool kDegrade>
+__global__ void __launch_bounds__(kThreads)
+resample_normalize_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, const Params p) {
+  resample_band<Tin, Tout, kDegrade>(x, out, p);
+}
+
+// A degrade with a low per image: the CTA reads its image's low, takes that
+// low's four band tables from the device table in place of p.op, and runs
+// the same band. The shared-memory plan holds the largest low's buffers. A
+// low outside the table writes NaN over the band rather than read outside it.
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(kThreads)
+degrade_lows_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, const Params p) {
+  const int img = blockIdx.x / p.bands;
+  const int l = __ldg(p.lows + img) - p.low0;
+  if (l < 0 || l >= p.n_lows) {
+    const int r0 = (blockIdx.x - img * p.bands) * p.rows;
+    const int len = min(p.rows, p.OH - r0) * p.OW * p.C;
+    Tout* o = out + (static_cast<size_t>(img) * p.OH + r0) * p.OW * p.C;
+    const float nan = __int_as_float(0x7fc00000);
+    for (int i = threadIdx.x; i < len; i += kThreads) {
+      float v[1] = {nan};
+      store_vec<1>(o + i, v);
+    }
+    return;
+  }
+  Params q = p;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) q.op[k] = p.table[4 * l + k];
+  resample_band<Tin, Tout, true>(x, out, q);
 }
 
 // ---- host side -------------------------------------------------------------
@@ -571,6 +622,82 @@ const void* kernel_for(int in_dtype, int out_dtype, bool degrade) {
   return nullptr;
 }
 
+template <typename Tin, typename Tout>
+const void* lows_fn() {
+  return reinterpret_cast<const void*>(&degrade_lows_kernel<Tin, Tout>);
+}
+
+const void* lows_kernel_for(int in_dtype, int out_dtype) {
+  if (in_dtype == 0 && out_dtype == 0) return lows_fn<uint8_t, float>();
+  if (in_dtype == 0 && out_dtype == 1) return lows_fn<uint8_t, __nv_bfloat16>();
+  if (in_dtype == 1 && out_dtype == 0) return lows_fn<float, float>();
+  if (in_dtype == 1 && out_dtype == 1) return lows_fn<float, __nv_bfloat16>();
+  return nullptr;
+}
+
+// The plan of a degrade with a low per image. `ops` holds four band tables
+// per low (down H, down W, up H, up W), `spans` (span, in_span) per low at
+// `rows` output rows per band. Each low must plan on its own; the buffers
+// take the largest span, input span and low-res width over the lows.
+bool make_plan_lows(int B, int C, int in_bytes, const crfr_band* ops, int n_lows, int rows,
+                    const int* spans, int limit, Plan* plan) {
+  if (n_lows <= 0 || spans == nullptr) return false;
+  int span = 0, in_span = 0, widest = 0;
+  for (int l = 0; l < n_lows; ++l) {
+    const crfr_band* o = ops + 4 * l;
+    if (!make_plan(B, C, in_bytes, o, 4, rows, spans[2 * l], spans[2 * l + 1], 0x7fffffff, plan))
+      return false;
+    if (o[0].n_in != ops[0].n_in || o[1].n_in != ops[1].n_in || o[2].n_out != ops[2].n_out ||
+        o[3].n_out != ops[3].n_out)
+      return false;
+    span = std::max(span, spans[2 * l]);
+    in_span = std::max(in_span, spans[2 * l + 1]);
+    if (o[1].n_out > ops[4 * widest + 1].n_out) widest = l;
+  }
+  return make_plan(B, C, in_bytes, ops + 4 * widest, 4, rows, span, in_span, limit, plan);
+}
+
+// Sets the load and store widths from the pointers, then launches `fn`.
+cudaError_t launch(const void* fn, Plan& plan, const void* x, int in_dtype, void* out,
+                   int out_dtype, void* stream) {
+  Params& p = plan.p;
+  static const int kInU8[] = {8, 4}, kInF32[] = {4, 2}, kOutBf16[] = {8, 4, 2},
+                   kOutF32[] = {4};
+  p.in_vec = in_dtype == 0 ? widest(x, p.W * p.C, 1, kInU8, 2)
+                           : widest(x, p.W * p.C, 4, kInF32, 2);
+  p.out_vec = out_dtype == 1 ? widest(out, p.OW * p.C, 2, kOutBf16, 3)
+                             : widest(out, p.OW * p.C, 4, kOutF32, 1);
+  cudaError_t err = cudaSuccess;
+  if (plan.smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+    if (err != cudaSuccess) return err;
+  }
+  void* args[] = {const_cast<void**>(&x), &out, &p};
+  err = cudaLaunchKernel(fn, dim3(plan.ctas), dim3(kThreads), args, plan.smem,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// info[] of crfr_resample_info for a plan made (`ok`) or refused.
+int report(const void* fn, bool ok, const Plan& plan, int refused_smem, int limit, int* info) {
+  info[6] = limit;
+  if (!ok) {
+    info[2] = refused_smem;
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  info[2] = plan.smem;
+  info[3] = plan.ctas;
+  info[4] = plan.p.rows;
+  info[5] = kThreads;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -593,21 +720,31 @@ int crfr_resample_normalize(const void* x, int in_dtype, void* out, int out_dtyp
   if (fn == nullptr || x == nullptr || out == nullptr ||
       !make_plan(B, C, in_dtype == 0 ? 1 : 4, ops, n_ops, rows, span, in_span, limit, &plan))
     return static_cast<int>(cudaErrorInvalidValue);
-  Params& p = plan.p;
-  static const int kInU8[] = {8, 4}, kInF32[] = {4, 2}, kOutBf16[] = {8, 4, 2},
-                   kOutF32[] = {4};
-  p.in_vec = in_dtype == 0 ? widest(x, p.W * C, 1, kInU8, 2) : widest(x, p.W * C, 4, kInF32, 2);
-  p.out_vec = out_dtype == 1 ? widest(out, p.OW * C, 2, kOutBf16, 3)
-                             : widest(out, p.OW * C, 4, kOutF32, 1);
-  if (plan.smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  void* args[] = {const_cast<void**>(&x), &out, &p};
-  err = cudaLaunchKernel(fn, dim3(plan.ctas), dim3(kThreads), args, plan.smem,
-                         static_cast<cudaStream_t>(stream));
+  return static_cast<int>(launch(fn, plan, x, in_dtype, out, out_dtype, stream));
+}
+
+// A degrade of (B, S, S, C) with a low per image. `ops` are the host's copy
+// of 4 band tables per low for the lows low0 ... low0 + n_lows - 1 and
+// `dev_ops` the same structs in device memory; `lows` (B,) int32 on the
+// device, each image's low; `spans` (span, in_span) per low at `rows`
+// output rows per band. Otherwise as crfr_resample_normalize.
+int crfr_degrade_lows_normalize(const void* x, int in_dtype, void* out, int out_dtype, int B,
+                                int C, const crfr_band* ops, const crfr_band* dev_ops, int n_lows,
+                                int low0, const int* lows, int rows, const int* spans,
+                                void* stream) {
+  const void* fn = lows_kernel_for(in_dtype, out_dtype);
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  Plan plan;
+  if (fn == nullptr || x == nullptr || out == nullptr || dev_ops == nullptr || lows == nullptr ||
+      !make_plan_lows(B, C, in_dtype == 0 ? 1 : 4, ops, n_lows, rows, spans, limit, &plan))
+    return static_cast<int>(cudaErrorInvalidValue);
+  plan.p.table = dev_ops;
+  plan.p.lows = lows;
+  plan.p.low0 = low0;
+  plan.p.n_lows = n_lows;
+  return static_cast<int>(launch(fn, plan, x, in_dtype, out, out_dtype, stream));
 }
 
 // What a call with these shapes launches: info[0] registers per thread,
@@ -623,24 +760,30 @@ int crfr_resample_info(int in_dtype, int out_dtype, int B, int C, const crfr_ban
   if (err != cudaSuccess) return static_cast<int>(err);
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   Plan plan;
-  info[6] = limit;
   const int in_bytes = in_dtype == 0 ? 1 : 4;
-  if (!make_plan(B, C, in_bytes, ops, n_ops, rows, span, in_span, limit, &plan)) {
-    // report what the plan would need, whatever the limit
-    info[2] = make_plan(B, C, in_bytes, ops, n_ops, rows, span, in_span, 0x7fffffff, &plan)
-                  ? plan.smem : -1;
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, fn);
+  const bool ok = make_plan(B, C, in_bytes, ops, n_ops, rows, span, in_span, limit, &plan);
+  // what the plan would need, whatever the limit
+  const int need = ok ? plan.smem
+      : make_plan(B, C, in_bytes, ops, n_ops, rows, span, in_span, 0x7fffffff, &plan) ? plan.smem
+      : -1;
+  return report(fn, ok, plan, need, limit, info);
+}
+
+// crfr_resample_info for crfr_degrade_lows_normalize's arguments.
+int crfr_degrade_lows_info(int in_dtype, int out_dtype, int B, int C, const crfr_band* ops,
+                           int n_lows, int rows, const int* spans, int* info) {
+  const void* fn = lows_kernel_for(in_dtype, out_dtype);
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
   if (err != cudaSuccess) return static_cast<int>(err);
-  info[0] = attr.numRegs;
-  info[1] = static_cast<int>(attr.localSizeBytes);
-  info[2] = plan.smem;
-  info[3] = plan.ctas;
-  info[4] = plan.p.rows;
-  info[5] = kThreads;
-  return 0;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  Plan plan;
+  const int in_bytes = in_dtype == 0 ? 1 : 4;
+  const bool ok = make_plan_lows(B, C, in_bytes, ops, n_lows, rows, spans, limit, &plan);
+  const int need = ok ? plan.smem
+      : make_plan_lows(B, C, in_bytes, ops, n_lows, rows, spans, 0x7fffffff, &plan) ? plan.smem
+      : -1;
+  return report(fn, ok, plan, need, limit, info);
 }
 
 const char* crfr_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -176,3 +176,69 @@ def test_kernel_order_resize_matches_pallas(rng, shape, out_hw, out_dtype):
     got = _as(_replay(x, port.operator_key(shape[1], shape[2], out_hw, "pil")), out_dtype)
     assert got.shape == (shape[0], *out_hw, 3)
     np.testing.assert_allclose(got, np.asarray(want, np.float32), **_TOL[out_dtype])
+
+
+# ---- a low per image: the train step's degrade ------------------------------
+
+@pytest.mark.parametrize("in_dtype", [np.uint8, np.float32])
+@pytest.mark.parametrize("mode", ["pil", "cv2"])
+def test_per_image_lows_match_crfr_train_step(rng, mode, in_dtype):
+    """The tensor form's plain version is crfr's train-step degrade: the
+    (L, S, S) table indexed per image, one batched einsum, then normalize
+    (crfr/train/loop.py:263-278), within 1e-5; each image also equals the
+    int form at its own low."""
+    from crfr.ops.bicubic import degrade_matrix as ref_degrade_matrix
+    from crfr.ops.normalize import normalize as ref_normalize
+
+    x = _pixels(rng, (6, 32, 32, 3), in_dtype)
+    lows = np.array([8, 32, 17, 9, 8, 31], np.int32)
+    table = jnp.asarray(np.stack([ref_degrade_matrix(32, low, mode) for low in range(8, 33)]))
+    w = table[lows - 8]
+    want = ref_normalize(jnp.einsum("boi,bijc,bpj->bopc", w, jnp.asarray(x, jnp.float32), w,
+                                    preferred_element_type=jnp.float32))
+    before = port.fused_degrade_normalize.lows_launches
+    got = port.fused_degrade_normalize(torch.from_numpy(x), torch.from_numpy(lows), mode,
+                                       torch.float32, lows=(8, 32))
+    assert port.fused_degrade_normalize.lows_launches == before        # the CPU launches nothing
+    assert got.shape == x.shape and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    for i, low in enumerate(lows):
+        one = port.fused_degrade_normalize(torch.from_numpy(x[i:i + 1]), int(low), mode,
+                                           torch.float32)
+        np.testing.assert_allclose(got[i:i + 1].numpy(), one.numpy(), atol=1e-5, rtol=0)
+
+
+def test_per_image_lows_refuse_bad_arguments(rng):
+    x = torch.from_numpy(_pixels(rng, (3, 16, 16, 3), np.uint8))
+    with pytest.raises(TypeError, match="int32"):
+        port.fused_degrade_normalize(x, torch.tensor([8, 8, 8]), lows=(8, 16))
+    with pytest.raises(TypeError, match="int32"):
+        port.fused_degrade_normalize(x, torch.tensor([8, 8], dtype=torch.int32), lows=(8, 16))
+    with pytest.raises(ValueError, match="outside 8..16"):
+        port.fused_degrade_normalize(x, torch.tensor([8, 17, 8], dtype=torch.int32),
+                                     lows=(8, 16))
+    with pytest.raises(ValueError, match="outside 9..16"):
+        port.fused_degrade_normalize(x, torch.tensor([8, 9, 9], dtype=torch.int32),
+                                     lows=(9, 16))
+    with pytest.raises(ValueError, match="range"):
+        port.lows_key(16, (9, 8), "pil")
+    # no range given: every low of 1 ... S
+    full = port.fused_degrade_normalize(x, torch.tensor([1, 16, 5], dtype=torch.int32))
+    assert torch.isfinite(full.float()).all()
+
+
+def test_lows_plan_takes_the_largest_over_the_lows():
+    """The shared-memory plan of the tensor form: ``band_spans`` the largest
+    over the lows at every band height, and the band structs of every low
+    in one table, four a low, in order."""
+    key = port.lows_key(112, (8, 112), "pil")
+    for rows in (112, 56, 28):
+        spans = [port.band_spans(port.operator_key(112, 112, low, "pil"), rows)
+                 for low in range(8, 113)]
+        assert port.band_spans(key, rows) == (max(s for s, _ in spans), max(s for _, s in spans))
+    import ctypes
+
+    arr, dev, _ = port._lows_bands(port.lows_key(32, (8, 12), "cv2"), torch.device("cpu"))
+    assert len(arr) == 4 * 5 and dev.numel() == 4 * 5 * ctypes.sizeof(port._Band)
+    assert [arr[4 * i + 1].n_out for i in range(5)] == [8, 9, 10, 11, 12]
+    assert [arr[4 * i + 2].n_in for i in range(5)] == [8, 9, 10, 11, 12]

@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card: the
-preprocessing kernel and ``bank_tilemax`` with the fused gallery path.
+preprocessing kernel (with an int low, a low per image, or a resize),
+``bank_tilemax`` with the fused gallery path, and the train step's one
+launch of the preprocessing kernel.
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor crfr, so it also runs where only PyTorch is installed:
@@ -149,6 +151,119 @@ def test_preprocess_launch_plan(cuda):
     assert resize["rows"] == fp.RESIZE_ROWS
     with pytest.raises(RuntimeError, match="CUDA error"):
         fp.resample_info((1, 64, 64, 3), (112, 20000))
+
+
+def _lows(b, pattern, device, seed=0):
+    if pattern == "random":
+        g = torch.Generator(device=device).manual_seed(seed)
+        return torch.randint(8, 113, (b,), generator=g, device=device, dtype=torch.int32)
+    low = 37 if pattern == "equal" else pattern
+    return torch.full((b,), low, dtype=torch.int32, device=device)
+
+
+def _check_lows(x, lows, mode, out_dtype, atol):
+    """Equal to the plain version within ``atol`` and, bit for bit, to the
+    int form's launch on each low's images."""
+    before = fp.fused_degrade_normalize.lows_launches
+    got = fp.fused_degrade_normalize(x, lows, mode, out_dtype, lows=(8, 112))
+    want = fp.fused_degrade_normalize_reference(x, lows, mode, out_dtype, lows=(8, 112))
+    torch.cuda.synchronize()
+    assert fp.fused_degrade_normalize.lows_launches == before + 1
+    assert got.dtype == out_dtype and got.is_contiguous() and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    for low in set(lows.tolist()):
+        sel = (lows == low).nonzero()[:, 0]
+        one = fp.fused_degrade_normalize(x[sel].contiguous(), low, mode, out_dtype)
+        assert torch.equal(one, got[sel]), low
+
+
+@pytest.mark.parametrize("pattern", ["random", "equal", 8, 15, 16, 112])
+@pytest.mark.parametrize("b", [1, 64, 513])
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("in_dtype,out_dtype,atol", [(torch.uint8, torch.bfloat16, 2e-2),
+                                                     (torch.float32, torch.float32, 1e-4)])
+@pytest.mark.parametrize("mode", ["pil", "cv2"])
+def test_lows_kernel_matches_plain_and_int_form(cuda, mode, in_dtype, out_dtype, atol, c, b,
+                                                pattern):
+    """A low per image, 8-112 at 112²: random lows, all equal, each of 8, 15,
+    16, 112 alone (112 is the identity's up-and-down, in the same path)."""
+    x = _pixels((b, 112, 112, c), in_dtype, cuda, seed=b + c)
+    _check_lows(x, _lows(b, pattern, cuda, seed=b), mode, out_dtype, atol)
+
+
+@pytest.mark.parametrize("offset", [1, 16])
+def test_lows_kernel_input_view_off_alignment(cuda, offset):
+    """Views that start 1 and 16 bytes into their allocation (uint8): the
+    staging copies their unaligned ends byte by byte."""
+    n = 64 * 112 * 112 * 3
+    x = _pixels((n + offset,), torch.uint8, cuda)[offset:].view(64, 112, 112, 3)
+    assert x.is_contiguous() and x.data_ptr() % 32 != 0
+    _check_lows(x, _lows(64, "random", cuda, seed=offset), "pil", torch.float32, 1e-4)
+
+
+def test_lows_kernel_marks_a_low_outside_its_table(cuda):
+    """The wrapper does not read the lows back; an image whose low lies
+    outside the table comes out NaN, the others as usual."""
+    x = _pixels((3, 112, 112, 3), torch.uint8, cuda)
+    lows = torch.tensor([16, 7, 113], dtype=torch.int32, device=cuda)
+    got = fp.fused_degrade_normalize(x, lows, "pil", torch.float32, lows=(8, 112))
+    torch.cuda.synchronize()
+    assert torch.isnan(got[1:]).all()
+    want = fp.fused_degrade_normalize(x[:1].contiguous(), 16, "pil", torch.float32)
+    assert torch.equal(got[:1], want)
+
+
+def test_lows_kernel_never_takes_the_plain_version(cuda, monkeypatch):
+    x = _pixels((8, 112, 112, 3), torch.uint8, cuda)
+    lows = _lows(8, "random", cuda)
+    want = fp.fused_degrade_normalize_reference(x, lows, "pil", torch.float32, lows=(8, 112))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("_reference", "fused_degrade_normalize_reference", "_table"):
+        monkeypatch.setattr(fp, name, refuse)
+    got = fp.fused_degrade_normalize(x, lows, "pil", torch.float32, lows=(8, 112))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_lows_launch_plan(cuda):
+    """The plan for lows 8-112: the tallest band height that fits, buffers
+    for the largest low, within the device's shared memory."""
+    lows = _lows(512, "random", cuda)
+    for in_dtype, out_dtype in ((torch.uint8, torch.bfloat16), (torch.float32, torch.float32)):
+        info = fp.resample_info((512, 112, 112, 3), lows, "pil", in_dtype, out_dtype,
+                                lows=(8, 112))
+        assert info["lows"] == [8, 112] and 0 < info["smem_bytes"] <= info["smem_limit"]
+        assert info["ctas"] == 512 * -(-112 // info["rows"])
+        assert (info["span"], info["in_span"]) == fp.band_spans(fp.lows_key(112, (8, 112), "pil"),
+                                                                info["rows"])
+        taller = [r for r in (112, 56, 28, 16) if r > info["rows"]]
+        for r in taller:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                fp.resample_info((512, 112, 112, 3), lows, "pil", in_dtype, out_dtype, rows=r,
+                                 lows=(8, 112))
+
+
+def test_train_step_launches_the_kernel_once(cuda):
+    """One train step of a small config on the card: one launch of the
+    preprocessing kernel with a low per image and none of the int form,
+    finite loss."""
+    from crfr_torch.configs import get_config
+    from crfr_torch.train.loop import Trainer
+
+    cfg = get_config("casia_arcface", ["model.backbone=ir_18", "data.num_classes=32",
+                                       "train.batch_size=32"])
+    tr = Trainer(cfg, device=cuda)
+    x = _pixels((32, 112, 112, 3), torch.uint8, cuda)
+    y = torch.arange(32, device=cuda)
+    before = (fp.fused_degrade_normalize.launches, fp.fused_degrade_normalize.lows_launches)
+    m = tr.train_step(x, y)
+    torch.cuda.synchronize()
+    after = (fp.fused_degrade_normalize.launches, fp.fused_degrade_normalize.lows_launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (0, 1)
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
 
 
 def _bank(n, m, d, invalid, device, seed=0):

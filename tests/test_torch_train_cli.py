@@ -1,0 +1,94 @@
+"""``python -m crfr_torch train`` on the CPU: 4 steps, then ``--resume`` to
+6, end with the same parameters, BN statistics and momentum as 6 steps
+straight through, on synthetic batches and on a ``.crfrpack`` of records
+(whose pipeline state is saved beside the checkpoint); what is not ported
+raises."""
+
+import json
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from crfr_torch.cli import main
+from crfr_torch.data.records import write_pack
+
+OVERRIDES = ["data.image_size=32", "model.input_size=32", "data.num_classes=4",
+             "data.degrade_min=8", "data.degrade_max=32", "model.backbone=ir_18",
+             "model.compute_dtype=float32", "loss.scale=16.0", "loss.margin=0.2",
+             "train.batch_size=8", "train.warmup_steps=2", "train.checkpoint_every_steps=2",
+             "train.log_every=1"]
+
+
+def _train(ckpt, steps, *extra, resume=False):
+    argv = ["train", "--preset", "casia_arcface", "--device", "cpu", *OVERRIDES,
+            f"train.checkpoint_dir={ckpt}", "--max-steps", str(steps), *extra]
+    return main(argv + (["--resume"] if resume else []))
+
+
+def _final(ckpt, step):
+    return torch.load(ckpt / f"step_{step:09d}.pt", weights_only=True)
+
+
+def _same(a, b):
+    assert a["step"] == b["step"]
+    for k, v in a["model"].items():
+        assert torch.equal(v, b["model"][k]), k
+    for i, st in a["opt"]["state"].items():
+        assert torch.equal(st["momentum_buffer"], b["opt"]["state"][i]["momentum_buffer"])
+
+
+@pytest.mark.parametrize("source", ["synthetic", "records"])
+def test_resume_equals_straight_run(tmp_path, capsys, source):
+    extra = []
+    if source == "records":
+        rng = np.random.default_rng(0)
+        recs = [(int(i % 4), rng.integers(0, 256, (32, 32, 3)).astype(np.uint8))
+                for i in range(20)]
+        write_pack(str(tmp_path / "train.crfrpack"), recs)
+        extra = ["--train-records", str(tmp_path / "train.crfrpack"), "--workers", "2"]
+    assert _train(tmp_path / "a", 4, *extra) == 0
+    assert _train(tmp_path / "a", 6, *extra, resume=True) == 0
+    assert _train(tmp_path / "b", 6, *extra) == 0
+    out = capsys.readouterr()
+    finals = [json.loads(line) for line in out.out.splitlines() if "final_step" in line]
+    assert finals == [{"final_step": 4}, {"final_step": 6}, {"final_step": 6}]
+    assert "resumed from step 4" in out.err
+    _same(_final(tmp_path / "a", 6)["state"], _final(tmp_path / "b", 6)["state"])
+    if source == "records":
+        saved = json.loads((tmp_path / "a" / "data_state.json").read_text())
+        assert saved == {"step": 6, "state": {"epoch": 2, "position": 8}}     # 48 of 20 records
+    rows = [json.loads(line) for line in (tmp_path / "a" / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in rows] == [1, 2, 3, 4, 5, 6]
+    cfg = _final(tmp_path / "a", 6)["config"]
+    assert json.loads(cfg)["train"]["batch_size"] == 8
+
+
+def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
+    with pytest.raises(NotImplementedError, match="bins"):
+        _train(tmp_path, 1, "--eval-bin", "lfw.bin")
+    with pytest.raises(NotImplementedError, match="recycle"):
+        _train(tmp_path, 1, "--recycle-every-steps", "5")
+    with pytest.raises(KeyError, match="unknown config key"):
+        _train(tmp_path, 1, "train.bogus=1")
+    with pytest.raises(SystemExit):
+        _train(tmp_path, 1, "--bogus")
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="more than one process"):
+        _train(tmp_path, 1)
+
+
+def test_cli_wants_cuda_unless_told(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["train", "--preset", "casia_arcface", *OVERRIDES,
+            f"train.checkpoint_dir={tmp_path}", "--max-steps", "1"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(argv)
+
+
+def test_python_dash_m_entry_point():
+    out = subprocess.run([sys.executable, "-m", "crfr_torch", "train", "--help"],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "--resume" in out.stdout
