@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of crfr_torch on one CUDA card: kernels, embed, verify,
-gallery, serve, train, the train CLI.
+gallery, serve, train, the train CLI, SR training, hallucinated
+extraction, the SR CLI.
 
     python3 chip_smoke.py
 
@@ -16,7 +17,9 @@ Phases, each printing one JSON line:
    images, the lows and the band tables of the lows present
    (``operator_bytes``). Their cases: the main
    one (B=256, 112², uint8 → bf16, low 16, pil), f32 input and output, cv2,
-   low 15 (pil and cv2), B=1, the 160×140 → 112² resize and a 37×200 → 112×96
+   low 15 (pil and cv2), B=1, the SR trainer's ↓ (112² → 14², uint8 → f32,
+   at the SR phase's batch and at the preset's 512; kernel 2's headline),
+   the 160×140 → 112² resize and a 37×200 → 112×96
    uint8 resize whose rows are not 16-byte multiples. The main case and the
    160×140 resize are also timed at several band heights (``ms_by_rows``) and
    with a cold L2 (``cold_ms``); both entries carry the launch plan
@@ -75,7 +78,34 @@ Phases, each printing one JSON line:
    classes, batch 64 and a checkpoint every 3 steps for ``--max-steps 6``,
    then ``--resume`` to 9 (it must resume at 6 and end with
    ``{"final_step": 9}``); a trainer restored from step 6 equals the saved
-   state bit for bit (parameters, BN statistics, momentum buffers, step).
+   state bit for bit (parameters, BN statistics, momentum buffers, step);
+9. sr_train: ``SRTrainer`` on the casia_arcface preset at scale 8 with 16
+   priors, full width (G: width 64, 3 coarse ResBlocks, a depth-3
+   hourglass, 8 ResBlocks; D: width 64, 4 downs), float32, at batch
+   ``SR_B`` (the preset's 512 does not fit: ~250 MB of saved activations
+   an image) on seeded uint8 images: one warm step, then one non-logging
+   step with the launch counters reset just before and read just after
+   (exactly one ``fused_resize_normalize`` launch, none of either degrade
+   form); losses finite, G and D changed, the EMA apart from G; one step
+   with R1 (γ = 10) and two D steps; imgs/s over three windows of five
+   steps with the peak of ``max_memory_allocated``; then one float32 step
+   at 32 px, scale 4, 4 priors, batch 4 of ``SyntheticFaces`` on the card
+   under ``strict_fp32()`` against the same step on CPU tensors (losses
+   within 1e-4 relative, parameters within rtol 1e-3 / atol 1e-4 but for
+   Adam's sign flips, each within 2·lr and counted), and ``psnr_ssim`` on
+   the card equal to the CPU's within 1e-4;
+10. sr_extract: ``load_sr_apply`` of a checkpoint of G at init, then
+   ``make_extract_fn(ir_50 float32, degrade_to=14, sr_apply=...)`` at
+   B=256: exactly one ``fused_resize_normalize`` launch and no degrade;
+   under ``strict_fp32()`` its embeddings equal the plain ``degrade_to=14``
+   path's (one launch of kernel 1) within 1e-4 relative, which holds the
+   two kernels against each other; the batch timed; and
+   ``build_serving_fn(sr_apply=...)`` equal to ``make_extract_fn``;
+11. sr_cli: ``python -m crfr_torch train-sr`` (64 synthetic identities) at
+   batch 16 with a checkpoint
+   every 2 steps for ``--max-steps 4``, then ``--resume`` to 6 (``"steps":
+   6``); a trainer restored from step 4 equals the saved state bit for
+   bit (G, D, both Adam states, the EMA, the step).
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the exit code is
@@ -106,6 +136,9 @@ B, S, LOW = 256, 112, 16
 TRAIN_B, LOWS = 512, (8, 112)          # casia_arcface: batch 512, degrade_min..degrade_max
 LOWS_NAME = "fused_degrade_normalize (a low per image)"
 BANK_M, BANK_D, BANK_K = 1 << 20, 512, 10
+SR_SCALE, SR_B = 8, 256                # the SR phase's batch: the largest power of two
+                                       # under ~60 GB (~0.21 GB an image, PERF.md §4)
+SR_LOW = S // SR_SCALE
 
 
 def emit(obj) -> None:
@@ -343,7 +376,13 @@ def phase_kernels(fp) -> list[dict]:
                             out_dtype, timed=False) for out_dtype in (bf16, f32_out)]
     big = torch.randint(0, 256, (B, 160, 140, 3), generator=g, device="cuda", dtype=torch.uint8)
     odd = torch.randint(0, 256, (5, 37, 200, 3), generator=g, device="cuda", dtype=torch.uint8)
-    resize = [kernel_case(fp, "fused_resize_normalize", big, (S, S), "pil", bf16, True,
+    sr_u8 = torch.randint(0, 256, (TRAIN_B, S, S, 3), generator=g, device="cuda",
+                          dtype=torch.uint8)
+    resize = [kernel_case(fp, "fused_resize_normalize", sr_u8[:SR_B].contiguous(),
+                          (SR_LOW, SR_LOW), "pil", f32_out, True),
+              kernel_case(fp, "fused_resize_normalize", sr_u8, (SR_LOW, SR_LOW), "pil",
+                          f32_out, True),
+              kernel_case(fp, "fused_resize_normalize", big, (S, S), "pil", bf16, True,
                           rows_sweep=(56, 32, 16)),
               kernel_case(fp, "fused_resize_normalize", big.float(), (S, S), "pil",
                           f32_out, True),
@@ -358,7 +397,7 @@ def phase_kernels(fp) -> list[dict]:
          **{k: degrade[0]["plan"][k] for k in plan_keys}},
         {"name": "fused_resize_normalize", "route": "cuda",
          "source": "crfr_torch/ops/csrc/fused_preprocess.cu",
-         "replaces": "crfr/ops/fused_pallas.py:93", "on_main_path": False,
+         "replaces": "crfr/ops/fused_pallas.py:93", "on_main_path": True,
          "cases": resize, **_headline(resize[0]),
          **{k: resize[0]["plan"][k] for k in plan_keys}},
     ]
@@ -430,6 +469,18 @@ def _headline(case: dict) -> dict:
     return out
 
 
+def _counts(fp) -> dict:
+    return {"fused_degrade_normalize": fp.fused_degrade_normalize.launches,
+            LOWS_NAME: fp.fused_degrade_normalize.lows_launches,
+            "fused_resize_normalize": fp.fused_resize_normalize.launches}
+
+
+def _zero_counts(fp) -> None:
+    fp.fused_degrade_normalize.launches = 0
+    fp.fused_degrade_normalize.lows_launches = 0
+    fp.fused_resize_normalize.launches = 0
+
+
 def phase_embed(fp) -> tuple[dict, dict]:
     from crfr_torch.bench.throughput import build_embed_pipeline
     from crfr_torch.device import strict_fp32
@@ -439,12 +490,10 @@ def phase_embed(fp) -> tuple[dict, dict]:
     g = torch.Generator(device="cuda").manual_seed(2)
     x = torch.randint(0, 256, (B, S, S, 3), generator=g, device="cuda", dtype=torch.uint8)
 
-    fp.fused_degrade_normalize.launches = 0
-    fp.fused_resize_normalize.launches = 0
+    _zero_counts(fp)
     emb = embed(x)
     torch.cuda.synchronize()
-    launches = {"fused_degrade_normalize": fp.fused_degrade_normalize.launches,
-                "fused_resize_normalize": fp.fused_resize_normalize.launches}
+    launches = _counts(fp)
     if tuple(emb.shape) != (B, 512) or emb.dtype != torch.float32:
         raise AssertionError(f"embed: bad output {tuple(emb.shape)} {emb.dtype}")
     if not torch.isfinite(emb).all():
@@ -730,14 +779,10 @@ def phase_train(fp) -> dict:
     before = {k: v.detach().clone() for k, v in tr.model.named_parameters()}
     tr.train_step(x, y)                                        # warm
     torch.cuda.synchronize()
-    fp.fused_degrade_normalize.launches = 0
-    fp.fused_degrade_normalize.lows_launches = 0
-    fp.fused_resize_normalize.launches = 0
+    _zero_counts(fp)
     m = tr.train_step(x, y)
     torch.cuda.synchronize()
-    launches = {"fused_degrade_normalize": fp.fused_degrade_normalize.launches,
-                LOWS_NAME: fp.fused_degrade_normalize.lows_launches,
-                "fused_resize_normalize": fp.fused_resize_normalize.launches}
+    launches = _counts(fp)
     loss, gnorm = m["loss"].item(), m["grad_norm"].item()
     changed = sum(not torch.equal(before[k], v) for k, v in tr.model.named_parameters())
     w = tr.model.head.weight
@@ -837,6 +882,228 @@ def phase_cli() -> dict:
             "wall_s_two_runs": wall}
 
 
+SR_ONE_RESIZE = {"fused_degrade_normalize": 0, LOWS_NAME: 0, "fused_resize_normalize": 1}
+
+
+def _nested_equal(a, b) -> bool:
+    """Two nested state dicts equal: tensors bit for bit, the rest by ==."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _nested_equal(v, b[k]) for k, v in a.items())
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def _sr_parity(lr: float = 1e-4) -> dict:
+    """One float32 SR step at 32 px, scale 4, 4 priors, batch 4 of
+    SyntheticFaces on the card under strict_fp32() against the same step on
+    CPU tensors, from the same seeded weights."""
+    from crfr_torch.configs import get_config
+    from crfr_torch.data.synthetic import SyntheticFaces
+    from crfr_torch.device import strict_fp32
+    from crfr_torch.train.sr_loop import SRTrainer
+
+    small = get_config("casia_arcface", ["data.image_size=32", "model.input_size=32",
+                                         "train.batch_size=4", "train.log_every=1000"])
+    imgs, _ = SyntheticFaces(num_classes=4, image_size=32, seed=0).sample(
+        np.random.default_rng(1), 4)
+    on = {}
+    for dev in ("cuda", "cpu"):
+        t = SRTrainer(small, scale=4, n_priors=4, lr_g=lr, lr_d=lr, device=dev)
+        with strict_fp32():
+            m = t.train_step(imgs)
+            iq = t.psnr_ssim(imgs)
+        state = {f"{n}.{k}": v.detach().cpu() for n in ("g", "d", "g_ema")
+                 for k, v in getattr(t, n).state_dict().items() if v.is_floating_point()}
+        on[dev] = (m["g_loss"].item(), m["d_loss"].item(), state, iq)
+    (g1, d1, s1, iq1), (g0, d0, s0, iq0) = on["cuda"], on["cpu"]
+    rel_g, rel_d = abs(g1 - g0) / abs(g0), abs(d1 - d0) / abs(d0)
+    flips, total, worst_flip = 0, 0, 0.0
+    for k, a in s1.items():
+        b = s0[k]
+        out = (a - b).abs() > 1e-4 + 1e-3 * b.abs()
+        total += b.numel()
+        if out.any():
+            flips += int(out.sum())
+            worst_flip = max(worst_flip, (a - b).abs()[out].max().item())
+    iq_err = max(abs(iq1[k] - iq0[k]) / max(1.0, abs(iq0[k])) for k in iq0)
+    if not (rel_g <= 1e-4 and rel_d <= 1e-4 and iq_err <= 1e-4):
+        raise AssertionError(f"sr_train: float32 step on the card vs CPU: g_loss rel {rel_g}, "
+                             f"d_loss rel {rel_d}, psnr/ssim {iq1} vs {iq0}")
+    if not (worst_flip <= 2 * lr and flips < 1e-4 * total):
+        raise AssertionError(f"sr_train: {flips} of {total} parameters beyond rtol 1e-3 / "
+                             f"atol 1e-4, the worst by {worst_flip} (Adam's sign flips are "
+                             f"within 2·lr = {2 * lr})")
+    return {"f32_step_g_loss_rel_card_vs_cpu": rel_g, "f32_step_d_loss_rel_card_vs_cpu": rel_d,
+            "f32_step_adam_sign_flips": flips, "f32_step_elements": total,
+            "f32_step_worst_flip": worst_flip, "psnr_ssim_card": iq1, "psnr_ssim_cpu": iq0,
+            "psnr_ssim_rel_err": iq_err}
+
+
+def phase_sr_train(fp) -> dict:
+    from crfr_torch.configs import get_config
+    from crfr_torch.train.sr_loop import SRTrainer
+
+    cfg = get_config("casia_arcface")
+    tr = SRTrainer(cfg, scale=SR_SCALE, n_priors=16, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(10)
+    x = torch.randint(0, 256, (SR_B, S, S, 3), generator=g, device="cuda", dtype=torch.uint8)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr.train_step(x)                                           # warm
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    if (tr.step + 1) % cfg.train.log_every == 0:
+        raise AssertionError("sr_train: the counted step would log PSNR/SSIM")
+    before = {n: {k: v.detach().clone() for k, v in getattr(tr, n).named_parameters()}
+              for n in ("g", "d")}
+    _zero_counts(fp)
+    m = tr.train_step(x)
+    torch.cuda.synchronize()
+    launches = _counts(fp)
+    g_loss, d_loss = m["g_loss"].item(), m["d_loss"].item()
+    changed = {n: sum(not torch.equal(v, dict(getattr(tr, n).named_parameters())[k])
+                      for k, v in before[n].items()) for n in ("g", "d")}
+    ema_apart = sum(not torch.equal(a, b) for a, b in zip(tr.g_ema.parameters(),
+                                                            tr.g.parameters()))
+    if launches != SR_ONE_RESIZE:
+        raise AssertionError(f"sr_train: one step launched {launches}, want one resize")
+    if not (np.isfinite(g_loss) and np.isfinite(d_loss)):
+        raise AssertionError(f"sr_train: g_loss {g_loss}, d_loss {d_loss}")
+    if not (changed["g"] and changed["d"] and ema_apart):
+        raise AssertionError(f"sr_train: parameters changed {changed}, EMA apart from G in "
+                             f"{ema_apart} tensors")
+    del before
+
+    tr.r1_gamma, tr.n_d_steps = 10.0, 2                        # R1's double backward
+    d_count = tr.d_opt.count()
+    m_r1 = tr.train_step(x)
+    torch.cuda.synchronize()
+    r1 = (m_r1["g_loss"].item(), m_r1["d_loss"].item())
+    if not (np.isfinite(r1).all() and tr.d_opt.count() == d_count + 2):
+        raise AssertionError(f"sr_train: R1 step losses {r1}, D updates "
+                             f"{tr.d_opt.count() - d_count}")
+    tr.r1_gamma, tr.n_d_steps = 0.0, 1
+
+    windows = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            tr.train_step(x)
+        torch.cuda.synchronize()
+        windows.append(5 * SR_B / (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    n_g = sum(p.numel() for p in tr.g.parameters())
+    n_d = sum(p.numel() for p in tr.d.parameters())
+    del tr, x
+    torch.cuda.empty_cache()
+    imgs_per_s = 15 * SR_B / sum(5 * SR_B / w for w in windows)
+    return {"phase": "sr_train", "preset": "casia_arcface", "scale": SR_SCALE, "n_priors": 16,
+            "batch": SR_B, "image_size": S, "dtype": "float32", "g_parameters": n_g,
+            "d_parameters": n_d, "launches": launches, "g_loss": g_loss, "d_loss": d_loss,
+            "parameters_changed": changed, "ema_tensors_apart_from_g": ema_apart,
+            "r1_step_losses": list(r1), "first_step_s": first_s, "imgs_per_s": imgs_per_s,
+            "imgs_per_s_windows": windows, "ms_per_step": 1e3 * SR_B / imgs_per_s,
+            "peak_bytes": peak, **_sr_parity()}
+
+
+def phase_sr_extract(fp) -> dict:
+    from crfr_torch.configs import get_config
+    from crfr_torch.device import strict_fp32
+    from crfr_torch.eval.extract import make_extract_fn
+    from crfr_torch.models.irse import build_backbone
+    from crfr_torch.serve import build_serving_fn
+    from crfr_torch.train.checkpoints import Checkpointer
+    from crfr_torch.train.sr_loop import SRTrainer, load_sr_apply
+
+    cfg = get_config("casia_arcface")
+    with tempfile.TemporaryDirectory() as tmp:
+        Checkpointer(tmp).save(0, SRTrainer(cfg, scale=SR_SCALE, device="cuda").state_dict(),
+                               cfg.to_json())
+        sr_apply = load_sr_apply(tmp, cfg, scale=SR_SCALE, device="cuda")   # G at init
+    model32 = build_backbone("ir_50", generator=torch.Generator().manual_seed(0)).cuda().eval()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randint(0, 256, (B, S, S, 3), generator=g, device="cuda", dtype=torch.uint8)
+    f_sr = make_extract_fn(model32, degrade_to=SR_LOW, sr_apply=sr_apply, device="cuda")
+    f_bic = make_extract_fn(model32, degrade_to=SR_LOW, device="cuda")
+    with strict_fp32():
+        _zero_counts(fp)
+        e_sr = f_sr(x)
+        torch.cuda.synchronize()
+        launches = _counts(fp)
+        _zero_counts(fp)
+        e_bic = f_bic(x)
+        torch.cuda.synchronize()
+        launches_bic = _counts(fp)
+        serve = build_serving_fn(model32, degrade_to=SR_LOW, sr_apply=sr_apply, flip_tta=True,
+                                 device="cuda")(x[:64])
+    if launches != SR_ONE_RESIZE:
+        raise AssertionError(f"sr_extract: one batch launched {launches}, want one resize")
+    if launches_bic["fused_degrade_normalize"] != 1:
+        raise AssertionError(f"sr_extract: the bicubic path launched {launches_bic}")
+    if tuple(e_sr.shape) != (B, 512) or not torch.isfinite(e_sr).all():
+        raise AssertionError(f"sr_extract: bad embeddings {tuple(e_sr.shape)}")
+    rel = ((e_sr - e_bic).abs().max() / e_bic.abs().max()).item()
+    rel_serve = ((serve - e_sr[:64]).abs().max() / e_sr[:64].abs().max()).item()
+    if not (rel <= 1e-4 and rel_serve <= 1e-5):
+        raise AssertionError(f"sr_extract: G at init vs the bicubic path rel {rel}, serving "
+                             f"fn vs extract rel {rel_serve}")
+    ms, runs = event_ms(lambda: f_sr(x))
+    ms_bic, runs_bic = event_ms(lambda: f_bic(x))
+    del model32, sr_apply
+    torch.cuda.empty_cache()
+    return {"phase": "sr_extract", "backbone": "ir_50", "dtype": "float32", "batch": B,
+            "degrade_to": SR_LOW, "scale": SR_SCALE, "launches": launches,
+            "bicubic_path_launches": launches_bic, "g_at_init_vs_bicubic_max_rel": rel,
+            "serving_fn_vs_extract_max_rel": rel_serve, "ms_per_batch": ms,
+            "ms_per_batch_runs": runs, "bicubic_ms_per_batch": ms_bic,
+            "bicubic_ms_per_batch_runs": runs_bic}
+
+
+def phase_sr_cli() -> dict:
+    """``train-sr`` for 4 steps, then resumed to 6, in child processes."""
+    from crfr_torch.configs import get_config
+    from crfr_torch.train.checkpoints import Checkpointer
+    from crfr_torch.train.sr_loop import SRTrainer
+
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(root), *filter(None, [os.environ.get("PYTHONPATH")])])}
+    with tempfile.TemporaryDirectory() as tmp:
+        # 64 synthetic identities (the labels go unused) in place of the
+        # preset's 10,572 prototypes, which take most of a run to draw
+        ov = ["data.num_classes=64", "train.batch_size=16", "train.checkpoint_every_steps=2",
+              f"train.checkpoint_dir={tmp}/ck"]
+        runs = []
+        t0 = time.perf_counter()
+        for extra in (["--max-steps", "4"], ["--max-steps", "6", "--resume"]):
+            r = subprocess.run([sys.executable, "-m", "crfr_torch", "train-sr", "--preset",
+                                "casia_arcface", "--scale", str(SR_SCALE), *ov, *extra],
+                               cwd=root, env=env, capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"sr_cli: exit {r.returncode}\n{r.stdout[-2000:]}\n"
+                                     f"{r.stderr[-4000:]}")
+            runs.append(r)
+        wall = time.perf_counter() - t0
+        finals = [json.loads(r.stdout.strip().splitlines()[-1]) for r in runs]
+        if [f["steps"] for f in finals] != [4, 6] or "resumed SR from step 4" not in runs[1].stderr \
+                or not all(np.isfinite([f["g_loss"], f["d_loss"]]).all() for f in finals):
+            raise AssertionError(f"sr_cli: {finals}, second run's stderr {runs[1].stderr[-500:]}")
+        ck = Checkpointer(f"{tmp}/ck/sr")
+        saved = ck.restore(step=4)
+        tr = SRTrainer(get_config("casia_arcface", ov), scale=SR_SCALE, device="cuda")
+        tr.restore_from(ck, step=4)
+        if not _nested_equal(tr.state_dict(), saved) or tr.step != 4:
+            raise AssertionError("sr_cli: a trainer restored from step 4 differs from the "
+                                 "saved state")
+        steps = ck.steps()
+    return {"phase": "sr_cli", "final": finals[-1], "steps": [f["steps"] for f in finals],
+            "resumed_from": 4, "checkpoints": steps, "restored_equals_saved": True,
+            "wall_s_two_runs": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -870,12 +1137,18 @@ def main() -> int:
     train = phase_train(fp)
     emit({**train, "card": smi})
     emit(phase_cli())
-    # launches on each kernel's own main path: embed for the preprocessing
-    # kernels, the gallery scan for bank_tilemax, a train step for the
-    # preprocessing kernel with a low per image
+    sr_train = phase_sr_train(fp)
+    emit({**sr_train, "card": smi})
+    sr_extract = phase_sr_extract(fp)
+    emit({**sr_extract, "card": smi})
+    emit(phase_sr_cli())
+    # launches on each kernel's own main path: embed for the int form of the
+    # preprocessing kernel, the gallery scan for bank_tilemax, a train step
+    # for the form with a low per image, an SR train step for the resize
     paths = {"embed": embed["launches"], "gallery": gallery["launches"],
-             "serve": serve["launches"], "train": train["launches"]}
-    own = {"bank_tilemax": gallery, LOWS_NAME: train}
+             "serve": serve["launches"], "train": train["launches"],
+             "sr_train": sr_train["launches"], "sr_extract": sr_extract["launches"]}
+    own = {"bank_tilemax": gallery, LOWS_NAME: train, "fused_resize_normalize": sr_train}
     for k in kernels:
         k["launches"] = own.get(k["name"], embed)["launches"][k["name"]]
         k["launches_by_path"] = {p: v[k["name"]] for p, v in paths.items() if k["name"] in v}

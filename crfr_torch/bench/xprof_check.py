@@ -5,6 +5,7 @@ crfr/bench/xprof_check.py, with torch.profiler in place of jax.profiler, and
     python -m crfr_torch.bench.xprof_check [--batch 256] [--steps 10]
     python -m crfr_torch.bench.xprof_check --path gallery [--batch 256]
     python -m crfr_torch.bench.xprof_check --path train [--batch 512] [--steps 5]
+    python -m crfr_torch.bench.xprof_check --path sr [--batch 256] [--steps 5]
 
 ``embed`` runs ``steps`` back-to-back calls of the bf16 embed pipeline
 (``bench.throughput.build_embed_pipeline``); ``gallery`` runs ``steps``
@@ -14,7 +15,11 @@ the scan (``eval.bank.streaming_topk_q``); ``train`` runs ``steps`` train
 steps of the casia_arcface preset (``bench.throughput.train_config``) on a
 device-resident batch, and splits the step's kernels into its own groups
 (convolutions forward and backward, BN, elementwise, the head's GEMMs, the
-CE, the optimizer, the preprocessing). Each runs on one CUDA card, once
+CE, the optimizer, the preprocessing); ``sr`` runs ``steps`` SR GAN steps
+(``train.sr_loop.SRTrainer``, the casia_arcface preset at scale 8 with 16
+priors, float32) on a device-resident batch, with the train groups plus the
+hourglass's pooling and upsampling and the peak of allocated memory. Each
+runs on one CUDA card, once
 untraced and once under the profiler, warmup outside both, and prints one
 JSON line: wall ms per call (untraced and traced), device busy ms per call
 (the union of kernel intervals in the trace), the idle share of the traced
@@ -67,6 +72,12 @@ _TRAIN_GROUPS = (
     ("reduce", ("reduce",)),
     ("elementwise", ("elementwise", "vectorized", "where", "copy", "fill")),
 )
+
+
+# an SR step's groups: the train step's, with the hourglass's pooling and
+# nearest upsampling (and their backward passes) apart
+_SR_GROUPS = (_TRAIN_GROUPS[0], ("pool", ("max_pool", "pooling")),
+              ("upsample", ("upsample", "nearest")), *_TRAIN_GROUPS[1:])
 
 
 def _group(name: str, groups=_GROUPS) -> str:
@@ -232,9 +243,39 @@ def trace_train(batch: int = 512, steps: int = 5, backbone: str = "ir_50",
     }
 
 
+def trace_sr(batch: int = 256, steps: int = 5, scale: int = 8, n_priors: int = 16,
+             top: int = 16, device: str | torch.device = "cuda", seed: int = 0) -> dict:
+    """One SR step (a G step and a D step) per call on a device-resident
+    batch of seeded random uint8 112² images."""
+    from crfr_torch.configs import get_config
+    from crfr_torch.train.sr_loop import SRTrainer
+
+    dev = _cuda(device)
+    tr = SRTrainer(get_config("casia_arcface", [f"train.log_every={10 ** 9}"]),
+                   scale=scale, n_priors=n_priors, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(0, 256, (batch, 112, 112, 3), generator=g, device=dev, dtype=torch.uint8)
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = _profile(lambda: tr.train_step(x), steps, dev, top, _SR_GROUPS)
+    return {
+        "scale": scale, "n_priors": n_priors, "batch": batch, "steps": steps,
+        "preset": "casia_arcface", "card": _card(),
+        "wall_ms_per_step": r["wall_ms"],
+        "imgs_per_s_untraced": 1e3 * batch / r["wall_ms"],
+        "traced_wall_ms_per_step": r["traced_wall_ms"],
+        "device_busy_ms_per_step": r["device_busy_ms"],
+        "idle_share_traced": r["idle_share_traced"],
+        "kernel_launches_per_step": r["kernel_launches"],
+        "peak_bytes": torch.cuda.max_memory_allocated(dev),
+        "group_ms_per_step": r["group_ms"],
+        "heaviest": [{"name": h["name"], "ms_per_step": h["ms"], "calls_per_step": h["calls"]}
+                     for h in r["heaviest"]],
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("embed", "gallery", "train"), default="embed")
+    ap.add_argument("--path", choices=("embed", "gallery", "train", "sr"), default="embed")
     ap.add_argument("--batch", type=int, default=0,
                     help="images or probes per call (256; 512 for train)")
     ap.add_argument("--steps", type=int, default=0, help="calls per window (10; 5 for train)")
@@ -244,8 +285,10 @@ def main() -> None:
         out = trace_embed(args.batch or 256, args.steps or 10, args.backbone)
     elif args.path == "gallery":
         out = trace_gallery(args.batch or 256, steps=args.steps or 10)
-    else:
+    elif args.path == "train":
         out = trace_train(args.batch or 512, args.steps or 5, args.backbone)
+    else:
+        out = trace_sr(args.batch or 256, args.steps or 5)
     print(json.dumps(out), flush=True)
 
 

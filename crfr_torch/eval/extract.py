@@ -4,7 +4,9 @@ Optional fixed-size probe degradation (bicubic down to ``degrade_to`` and
 back up), normalization, the backbone, and optional horizontal-flip TTA
 with sum/concat fusion. Degrade + normalize is one launch of the fused
 preprocessing kernel on CUDA (float32 out, as the reference's eval path
-computes it in float32).
+computes it in float32). With a hallucinator (``sr_apply``) the probe is
+instead bicubic↓ to ``degrade_to`` and normalized in one launch of the
+resize form of the kernel, then hallucinated back up by G.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Callable
 import torch
 
 from crfr_torch.device import refuse_mesh, resolve_device
-from crfr_torch.ops.fused_preprocess import fused_degrade_normalize
+from crfr_torch.ops.fused_preprocess import fused_degrade_normalize, fused_resize_normalize
 from crfr_torch.ops.normalize import normalize
 
 
@@ -30,12 +32,17 @@ def make_extract_fn(backbone_apply: Callable, degrade_to: int | None = None,
     S = ``image_size``. ``backbone_apply``: normalized NHWC pixels →
     embeddings, or ``backbone_apply(state, x)`` with ``state_fn() → state``
     to embed with the caller's current weights. Runs under
-    ``torch.inference_mode``. ``sr_apply`` and a ``mesh`` of more than one
-    device are not ported yet, nor is ``extract_embeddings`` (it needs the
-    image-path input pipeline).
+    ``torch.inference_mode``.
+
+    ``sr_apply`` (normalized LR → normalized HR pixels, e.g.
+    ``train.sr_loop.load_sr_apply``) routes the probe through the
+    hallucinator: bicubic↓ to ``degrade_to`` → G ↑ → backbone, in place of
+    the bicubic down→up degradation; it needs ``degrade_to``. A ``mesh`` of
+    more than one device is not ported yet, nor is ``extract_embeddings``
+    (it needs the image-path input pipeline).
     """
-    if sr_apply is not None:
-        raise NotImplementedError("sr_apply (hallucinated probes) is not ported yet")
+    if sr_apply is not None and degrade_to is None:
+        raise ValueError("sr_apply needs degrade_to (the LR size)")
     refuse_mesh(mesh, "sharded extraction")
     if flip_fusion not in ("sum", "concat"):
         raise ValueError(f"unknown flip fusion {flip_fusion!r}")
@@ -53,7 +60,10 @@ def make_extract_fn(backbone_apply: Callable, degrade_to: int | None = None,
         if x.ndim != 4 or tuple(x.shape[1:]) != (image_size, image_size, 3):
             raise ValueError(f"expected (B, {image_size}, {image_size}, 3), "
                              f"got {tuple(x.shape)}")
-        if degrade_to is not None:
+        if sr_apply is not None:
+            x = sr_apply(fused_resize_normalize(x.contiguous(), (degrade_to, degrade_to),
+                                                resize_mode, out_dtype=torch.float32))
+        elif degrade_to is not None:
             x = fused_degrade_normalize(x.contiguous(), degrade_to, resize_mode,
                                         out_dtype=torch.float32)
         else:

@@ -18,6 +18,13 @@ leaf names and layouts change:
 ``params`` and ``batch_stats`` (paths ``backbone/...`` and ``head/weight``):
 a ``state_dict`` for ``crfr_torch.train.loop.FaceTrainModel``, the head's
 W kept as (D, C).
+
+The SR networks need no converter of their own: ``crfr_torch.models.sr``
+keeps ``crfr.models.sr``'s module names and leaves, so ``params_from_jax``
+carries a ``Hallucinator``'s state (``coarse/body/0/c1/conv/kernel``,
+``coarse/ups/0/bias``, ``prior/hg/skip/0/...``, ``gen/out/kernel``) and a
+``Discriminator``'s (``layers/0/conv/bias``, ``layers/1/bn/mean``,
+``fc/kernel``) as it stands.
 """
 
 from __future__ import annotations

@@ -18,7 +18,8 @@ def build_serving_fn(backbone_apply: Callable, degrade_to: int | None = None,
                      device: str | torch.device = "cuda") -> Callable:
     """Raw (B, S, S, 3) pixels (uint8/f32, numpy or tensor) → (B, D) f32
     embeddings on ``device``: ``make_extract_fn`` with flip-TTA fused by sum.
-    ``sr_apply`` is not ported yet."""
+    With ``sr_apply`` (a frozen hallucinator, ``train.sr_loop.load_sr_apply``)
+    the probe goes ↓``degrade_to`` → G ↑ → backbone."""
     f = make_extract_fn(backbone_apply, degrade_to, resize_mode, flip=flip_tta,
                         flip_fusion="sum", image_size=image_size, sr_apply=sr_apply,
                         device=device)

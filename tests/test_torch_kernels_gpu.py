@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card: the
-preprocessing kernel (with an int low, a low per image, or a resize),
-``bank_tilemax`` with the fused gallery path, and the train step's one
-launch of the preprocessing kernel.
+preprocessing kernel (with an int low, a low per image, or a resize, the
+SR probe's ↓ among them), ``bank_tilemax`` with the fused gallery path,
+and the one launch of the preprocessing kernel in a train step, an SR
+train step and a hallucinated extract batch.
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor crfr, so it also runs where only PyTorch is installed:
@@ -75,6 +76,61 @@ def test_resize_kernel_matches_plain(cuda, shape, out_hw, in_dtype):
     torch.cuda.synchronize()
     assert fp.fused_resize_normalize.launches == before + 1
     torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("b", [1, 64, 513])
+@pytest.mark.parametrize("low", [14, 16, 8])
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float32])
+def test_resize_kernel_at_the_sr_shapes(cuda, in_dtype, low, b):
+    """112² → the probe sizes of scales 8, 7 and 14, float32 out: the SR
+    trainer's and the hallucinated extract's ↓."""
+    x = _pixels((b, 112, 112, 3), in_dtype, cuda, seed=b + low)
+    before = fp.fused_resize_normalize.launches
+    got = fp.fused_resize_normalize(x, (low, low), "pil", torch.float32)
+    want = fp.fused_resize_normalize_reference(x, (low, low), "pil", torch.float32)
+    torch.cuda.synchronize()
+    assert fp.fused_resize_normalize.launches == before + 1
+    assert got.shape == (b, low, low, 3) and got.is_contiguous()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def _counts():
+    return (fp.fused_resize_normalize.launches, fp.fused_degrade_normalize.launches,
+            fp.fused_degrade_normalize.lows_launches)
+
+
+def test_sr_train_step_launches_the_resize_once(cuda):
+    """One SR step (scale 8, 16 priors, batch 8 at 112²): one launch of the
+    resize form and none of the degrade forms; finite losses."""
+    from crfr_torch.configs import get_config
+    from crfr_torch.train.sr_loop import SRTrainer
+
+    tr = SRTrainer(get_config("casia_arcface", ["train.log_every=1000"]), device=cuda)
+    x = _pixels((8, 112, 112, 3), torch.uint8, cuda)
+    tr.train_step(x)
+    before = _counts()
+    m = tr.train_step(x)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (1, 0, 0)
+    assert torch.isfinite(m["g_loss"]) and torch.isfinite(m["d_loss"])
+
+
+def test_hallucinated_extract_launches_the_resize_once(cuda):
+    """A hallucinated extract batch: one resize launch, no degrade."""
+    from crfr_torch.eval.extract import make_extract_fn
+    from crfr_torch.models.irse import build_backbone
+    from crfr_torch.models.sr import build_hallucinator
+    from crfr_torch.train.sr_loop import sr_apply_from_state
+
+    model = build_backbone("ir_18").to(cuda).eval()
+    f = make_extract_fn(model, degrade_to=14, device=cuda,
+                        sr_apply=sr_apply_from_state(build_hallucinator(8).to(cuda)))
+    x = _pixels((16, 112, 112, 3), torch.uint8, cuda)
+    before = _counts()
+    emb = f(x)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (1, 0, 0)
+    assert emb.shape == (16, 512) and torch.isfinite(emb).all()
 
 
 @pytest.mark.parametrize("out_dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])

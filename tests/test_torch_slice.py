@@ -70,8 +70,8 @@ def test_extract_state_fn_uses_live_weights(twins):
 
 def test_extract_refuses_unported_options(twins):
     _, tm = twins
-    with pytest.raises(NotImplementedError, match="sr_apply"):
-        make_extract_fn(tm, degrade_to=LOW, sr_apply=lambda v: v, device="cpu")
+    with pytest.raises(ValueError, match="sr_apply needs degrade_to"):
+        make_extract_fn(tm, sr_apply=lambda v: v, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         make_extract_fn(tm, mesh=object(), device="cpu")
     x = _faces(2, B)                       # a one-device mesh: the single-device path
