@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of crfr_torch on one CUDA card: kernels, embed, verify,
 gallery, serve, train, the train CLI, SR training, hallucinated
-extraction, the SR CLI.
+extraction, the SR CLI, residual KD, the KD CLI, the headline experiment.
 
     python3 chip_smoke.py
 
@@ -105,7 +105,33 @@ Phases, each printing one JSON line:
    batch 16 with a checkpoint
    every 2 steps for ``--max-steps 4``, then ``--resume`` to 6 (``"steps":
    6``); a trainer restored from step 4 equals the saved state bit for
-   bit (G, D, both Adam states, the EMA, the step).
+   bit (G, D, both Adam states, the EMA, the step);
+12. distill: ``DistillTrainer`` on the casia_arcface preset at full width
+   (IR-50 student, bf16, 10,572 classes, λ = 1) with a frozen IR-50
+   teacher at init, on three inputs: bicubic (per-image lows 8–112) and a
+   frozen G at full width (scale 8, 16 priors, float32) at batch 512, and
+   G trained jointly at batch ``DISTILL_JOINT_B`` (the cut is in
+   ``reduced``): for each, one warm step, then one step with the launch
+   counters reset just before and read just after (exactly one launch of
+   kernel 1's per-image form on the bicubic path, of kernel 2 on the G
+   paths), finite losses, every student parameter moved; imgs/s over
+   windows of steps with the peak of ``max_memory_allocated``; then one
+   float32 step of each path at 32 px (ir_18, batch 16, lr 0.01) on the
+   card under ``strict_fp32()`` against the same step on CPU tensors
+   (losses within 1e-4 relative, the student within rtol 1e-3 / atol
+   1e-4, G's Adam sign flips within 2·lr and counted);
+13. distill_cli: ``python -m crfr_torch train`` for 2 steps as the teacher,
+   then ``train-distill`` (64 synthetic identities, batch 16) for 4 steps,
+   ``--resume`` to 6 and 6 straight, with cuDNN's deterministic
+   algorithms: the resumed state equals the straight one bit for bit; one
+   run with ``--sr-ckpt`` (G at init);
+14. headline: ``run_headline`` at HeadlineCfg's widths, identities and
+   batch (IR-18 bf16, b64, 96/64/64 identities × 48 samples, probes 16
+   and 8 px) with the steps and the eval mass cut (``HEADLINE_CUTS``,
+   listed in ``reduced``) and the int8 row off: the table's schema,
+   finite losses, the stage checkpoint and the JSON artifact; the results,
+   ``ordering_holds`` (reported, not asserted: the steps are cut), the
+   render and stage seconds.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the exit code is
@@ -211,6 +237,19 @@ def cold_ms(fn, repeats: int = 10) -> tuple[float, list[float]]:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times)), times
+
+
+def _windows(step, b: int, steps: int = 10, repeats: int = 3) -> list[float]:
+    """imgs/s of ``repeats`` windows of ``steps`` calls of ``step()``."""
+    out = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        out.append(steps * b / (time.perf_counter() - t0))
+    return out
 
 
 def bound(in_bytes: int, out_bytes: int, ops: int,
@@ -895,6 +934,23 @@ def _nested_equal(a, b) -> bool:
     return a == b
 
 
+def _beyond(got: dict, want: dict) -> tuple[int, int, float]:
+    """The floating elements of ``got`` beyond rtol 1e-3 / atol 1e-4 of
+    ``want``'s (Adam's sign flips, after a float32 step on two devices),
+    the count of floating elements, and the worst such distance."""
+    flips, total, worst = 0, 0, 0.0
+    for k, a in got.items():
+        if not a.is_floating_point():
+            continue
+        b = want[k]
+        bad = (a - b).abs() > 1e-4 + 1e-3 * b.abs()
+        total += b.numel()
+        if bad.any():
+            flips += int(bad.sum())
+            worst = max(worst, (a - b).abs()[bad].max().item())
+    return flips, total, worst
+
+
 def _sr_parity(lr: float = 1e-4) -> dict:
     """One float32 SR step at 32 px, scale 4, 4 priors, batch 4 of
     SyntheticFaces on the card under strict_fp32() against the same step on
@@ -919,14 +975,7 @@ def _sr_parity(lr: float = 1e-4) -> dict:
         on[dev] = (m["g_loss"].item(), m["d_loss"].item(), state, iq)
     (g1, d1, s1, iq1), (g0, d0, s0, iq0) = on["cuda"], on["cpu"]
     rel_g, rel_d = abs(g1 - g0) / abs(g0), abs(d1 - d0) / abs(d0)
-    flips, total, worst_flip = 0, 0, 0.0
-    for k, a in s1.items():
-        b = s0[k]
-        out = (a - b).abs() > 1e-4 + 1e-3 * b.abs()
-        total += b.numel()
-        if out.any():
-            flips += int(out.sum())
-            worst_flip = max(worst_flip, (a - b).abs()[out].max().item())
+    flips, total, worst_flip = _beyond(s1, s0)
     iq_err = max(abs(iq1[k] - iq0[k]) / max(1.0, abs(iq0[k])) for k in iq0)
     if not (rel_g <= 1e-4 and rel_d <= 1e-4 and iq_err <= 1e-4):
         raise AssertionError(f"sr_train: float32 step on the card vs CPU: g_loss rel {rel_g}, "
@@ -986,14 +1035,7 @@ def phase_sr_train(fp) -> dict:
                              f"{tr.d_opt.count() - d_count}")
     tr.r1_gamma, tr.n_d_steps = 0.0, 1
 
-    windows = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            tr.train_step(x)
-        torch.cuda.synchronize()
-        windows.append(5 * SR_B / (time.perf_counter() - t0))
+    windows = _windows(lambda: tr.train_step(x), SR_B, steps=5)
     peak = torch.cuda.max_memory_allocated()
     n_g = sum(p.numel() for p in tr.g.parameters())
     n_d = sum(p.numel() for p in tr.d.parameters())
@@ -1104,6 +1146,254 @@ def phase_sr_cli() -> dict:
             "wall_s_two_runs": wall}
 
 
+DISTILL_JOINT_B = 256                  # the joint path's batch: G in train mode saves
+                                       # ~0.21 GB an image (PERF.md §4), so 512 cannot fit
+HEADLINE_CUTS = {"teacher_steps": 60, "sr_steps": 30, "distill_steps": 30, "n_pairs": 128,
+                 "probes_per_id": 3, "bootstrap": 500}
+
+
+def _random_heads(g, seed: int):
+    """G's two correction heads drawn small from a seed (G at init is bicubic)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for head in (g.gen.out, g.coarse.out):
+            head.weight.copy_(torch.randn(head.weight.shape, generator=gen) * 0.01)
+            head.bias.copy_(torch.randn(head.bias.shape, generator=gen) * 0.01)
+    return g
+
+
+def _distill_parity(lr: float = 0.01, sr_lr: float = 1e-5) -> dict:
+    """One float32 KD step of each input path at 32 px (ir_18, 4 classes,
+    batch 16, s=16, m=0.2, λ=1e-3; G at scale 4 with 4 priors and random
+    heads) on the card under strict_fp32() against the same step on CPU
+    tensors, from the same seeded weights."""
+    from crfr_torch.configs import get_config
+    from crfr_torch.data.synthetic import SyntheticFaces
+    from crfr_torch.device import strict_fp32
+    from crfr_torch.models.sr import build_hallucinator
+    from crfr_torch.train.distill_loop import DistillTrainer, teacher_from_trainer
+    from crfr_torch.train.loop import Trainer
+    from crfr_torch.train.sr_loop import sr_apply_from_state
+
+    small = get_config("casia_arcface", [
+        "model.backbone=ir_18", "data.image_size=32", "model.input_size=32",
+        "data.num_classes=4", "train.batch_size=16", "model.compute_dtype=float32",
+        "model.dropout=0.0", "train.warmup_steps=0", "data.degrade_max=32",
+        "loss.scale=16.0", "loss.margin=0.2", f"train.lr={lr}", "loss.distill_weight=1e-3"])
+    imgs, labels = SyntheticFaces(num_classes=4, image_size=32, seed=0).sample(
+        np.random.default_rng(1), 16)
+    lows = torch.from_numpy(np.random.default_rng(9).integers(8, 33, 16).astype(np.int32))
+    out = {}
+    for path in ("bicubic", "frozen_g", "joint_g"):
+        on = {}
+        for dev in ("cuda", "cpu"):
+            teacher = teacher_from_trainer(Trainer(small, device=dev))
+            g = _random_heads(build_hallucinator(4, 4), 12).to(dev)
+            kw = ({} if path == "bicubic" else
+                  {"sr_scale": 4, "sr_fn": sr_apply_from_state(g)} if path == "frozen_g" else
+                  {"sr_scale": 4, "sr_module": g, "sr_lr": sr_lr})
+            st = DistillTrainer(small, teacher, device=dev, **kw)
+            with strict_fp32():
+                m = st.train_step(imgs, labels, lows=lows if path == "bicubic" else None)
+            on[dev] = ({k: v.item() for k, v in m.items()},
+                       {k: v.detach().cpu() for k, v in st.model.state_dict().items()},
+                       {k: v.detach().cpu() for k, v in st.g.state_dict().items()}
+                       if st.g is not None else {})
+        (m1, s1, g1), (m0, s0, g0) = on["cuda"], on["cpu"]
+        rel = max(abs(m1[k] - m0[k]) / abs(m0[k]) for k in m0 if k != "grad_norm")
+        worst = max(((a.float() - s0[k].float()).abs() - (1e-4 + 1e-3 * s0[k].float().abs()))
+                    .max().item() for k, a in s1.items())
+        flips, total, worst_flip = _beyond(g1, g0)
+        if not (rel <= 1e-4 and worst <= 0):
+            raise AssertionError(f"distill: float32 {path} step on the card vs CPU: losses rel "
+                                 f"{rel} ({m1} vs {m0}), student beyond rtol 1e-3 / atol 1e-4 "
+                                 f"by {worst}")
+        if g1 and not (worst_flip <= 2 * sr_lr and flips < 1e-4 * total):
+            raise AssertionError(f"distill: joint G on the card vs CPU: {flips} of {total} "
+                                 f"elements apart, the worst by {worst_flip}")
+        out[path] = {"loss_rel": rel, "student_excess": worst, "metrics_card": m1,
+                     **({"g_adam_sign_flips": flips, "g_elements": total,
+                         "g_worst_flip": worst_flip} if g1 else {})}
+    return out
+
+
+def phase_distill(fp) -> dict:
+    """Residual KD on the casia_arcface preset at full width with a frozen
+    IR-50 teacher at init: the bicubic path (per-image lows, kernel 1's
+    per-image form), a frozen G at full width (scale 8, 16 priors, float32;
+    kernel 2 and G's eval forward) and G trained jointly, each with its
+    launches counted over one step."""
+    from crfr_torch.configs import get_config
+    from crfr_torch.models.sr import build_hallucinator
+    from crfr_torch.train.distill_loop import DistillTrainer, teacher_from_trainer
+    from crfr_torch.train.loop import Trainer
+    from crfr_torch.train.sr_loop import sr_apply_from_state
+
+    cfg = get_config("casia_arcface", ["train.warmup_steps=0", "loss.distill_weight=1.0"])
+    teacher = teacher_from_trainer(Trainer(cfg, device="cuda"))
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randint(0, 256, (TRAIN_B, S, S, 3), generator=g, device="cuda", dtype=torch.uint8)
+    y = torch.randint(0, cfg.data.num_classes, (TRAIN_B,), generator=g, device="cuda")
+    paths = {}
+    for path in ("bicubic", "frozen_g", "joint_g"):
+        b = DISTILL_JOINT_B if path == "joint_g" else TRAIN_B
+        kw = {}
+        if path == "frozen_g":
+            kw = {"sr_scale": SR_SCALE,
+                  "sr_fn": sr_apply_from_state(build_hallucinator(SR_SCALE, 16).cuda())}
+        elif path == "joint_g":
+            kw = {"sr_scale": SR_SCALE, "sr_module": build_hallucinator(SR_SCALE, 16)}
+        st = DistillTrainer(cfg, teacher, device="cuda", **kw)
+        xb, yb = x[:b], y[:b]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st.train_step(xb, yb)                                  # warm
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        before = {k: v.detach().clone() for k, v in st.model.named_parameters()}
+        _zero_counts(fp)
+        m = st.train_step(xb, yb)
+        torch.cuda.synchronize()
+        launches = _counts(fp)
+        metrics = {k: v.item() for k, v in m.items()}
+        changed = sum(not torch.equal(before[k], v) for k, v in st.model.named_parameters())
+        del before
+        want = ({"fused_degrade_normalize": 0, LOWS_NAME: 1, "fused_resize_normalize": 0}
+                if path == "bicubic" else SR_ONE_RESIZE)
+        if launches != want:
+            raise AssertionError(f"distill {path}: one step launched {launches}, want {want}")
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"distill {path}: step metrics {metrics}")
+        if changed != len(list(st.model.parameters())):
+            raise AssertionError(f"distill {path}: {changed} student parameters changed")
+        windows = _windows(lambda: st.train_step(xb, yb), b,
+                           steps=5 if path == "joint_g" else 10,
+                           repeats=1 if path == "joint_g" else 3)
+        ips = len(windows) * b / sum(b / w for w in windows)
+        paths[path] = {"batch": b, "launches": launches, "metrics": metrics,
+                       "first_step_s": first_s, "imgs_per_s": ips, "imgs_per_s_windows": windows,
+                       "ms_per_step": 1e3 * b / ips,
+                       "peak_bytes": torch.cuda.max_memory_allocated()}
+        del st, kw
+        torch.cuda.empty_cache()
+    del teacher, x, y
+    torch.cuda.empty_cache()
+    return {"phase": "distill", "preset": "casia_arcface", "backbone": "ir_50",
+            "teacher": "ir_50 at init, frozen", "distill_weight": 1.0, "classes": 10572,
+            "compute_dtype": "bfloat16", "lows": list(LOWS), "sr_scale": SR_SCALE,
+            "n_priors": 16, "paths": paths,
+            "reduced": {"joint_g.batch": f"{TRAIN_B} -> {DISTILL_JOINT_B}: G in train mode "
+                                         "saves ~0.21 GB an image"},
+            "f32_step_card_vs_cpu": _distill_parity()}
+
+
+def phase_distill_cli() -> dict:
+    """``train`` for 2 steps (the teacher), then ``train-distill`` for 4
+    steps, ``--resume`` to 6, and 6 straight, in child processes with
+    cuDNN's deterministic algorithms; then 2 steps with a frozen G from an
+    SR checkpoint (``--sr-ckpt``)."""
+    from crfr_torch.configs import get_config
+    from crfr_torch.train.checkpoints import Checkpointer
+    from crfr_torch.train.sr_loop import SRTrainer
+
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8", "PYTHONPATH": os.pathsep.join(
+        [str(root), *filter(None, [os.environ.get("PYTHONPATH")])])}
+    launcher = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
+                "from crfr_torch.cli import main; sys.exit(main(sys.argv[1:]))")
+    with tempfile.TemporaryDirectory() as tmp:
+        ov = ["data.num_classes=64", "train.batch_size=16", "train.checkpoint_every_steps=2",
+              "loss.distill_weight=0.05", "train.grad_clip_norm=5.0"]
+        cfg = get_config("casia_arcface", ov)
+        Checkpointer(f"{tmp}/sr").save(0, SRTrainer(cfg, scale=SR_SCALE, device="cuda")
+                                       .state_dict(), cfg.to_json())
+        runs = []
+
+        def run(*args):
+            r = subprocess.run([sys.executable, "-c", launcher, *args], cwd=root, env=env,
+                               capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                raise AssertionError(f"distill_cli: {args[:1]} exit {r.returncode}\n"
+                                     f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+            runs.append(r)
+            return json.loads(r.stdout.strip().splitlines()[-1])
+
+        t0 = time.perf_counter()
+        run("train", "--preset", "casia_arcface", *ov, f"train.checkpoint_dir={tmp}/t",
+            "--max-steps", "2")
+        base = ["train-distill", "--preset", "casia_arcface", "--teacher-ckpt", f"{tmp}/t", *ov]
+        finals = [run(*base, f"train.checkpoint_dir={tmp}/a", "--max-steps", "4"),
+                  run(*base, f"train.checkpoint_dir={tmp}/a", "--max-steps", "6", "--resume"),
+                  run(*base, f"train.checkpoint_dir={tmp}/b", "--max-steps", "6")]
+        sr = run(*base, f"train.checkpoint_dir={tmp}/c", "--max-steps", "2", "--sr-ckpt",
+                 f"{tmp}/sr", "--sr-scale", str(SR_SCALE))
+        wall = time.perf_counter() - t0
+        if [f["steps"] for f in finals] != [4, 6, 6] or sr["steps"] != 2 \
+                or "resumed student from step 4" not in runs[2].stderr \
+                or not all(np.isfinite(f["loss"]) for f in finals + [sr]):
+            raise AssertionError(f"distill_cli: {finals}, {sr}, resumed run's stderr "
+                                 f"{runs[2].stderr[-500:]}")
+        resumed = Checkpointer(f"{tmp}/a/student").restore(step=6)
+        straight = Checkpointer(f"{tmp}/b/student").restore(step=6)
+        if not _nested_equal(resumed, straight):
+            diff = max((a.float() - straight["model"][k].float()).abs().max().item()
+                       for k, a in resumed["model"].items())
+            raise AssertionError(f"distill_cli: 4 + --resume to 6 differs from 6 straight "
+                                 f"(parameters by up to {diff})")
+    return {"phase": "distill_cli", "finals": finals, "sr_run": sr,
+            "resumed_equals_straight": True, "wall_s_five_runs": wall}
+
+
+def phase_headline(fp) -> dict:
+    """``run_headline`` at HeadlineCfg's widths, identities and batch (IR-18
+    bf16, b64, 96/64/64 identities × 48 samples, probes 16 and 8 px), the
+    steps and the evaluation mass cut (``reduced``) to fit the script's
+    time; the int8 row off. The ordering is reported, not asserted: the
+    steps are cut."""
+    from crfr_torch.experiments.headline import HeadlineCfg, ordering_holds, run_headline
+
+    with tempfile.TemporaryDirectory() as tmp:
+        h = HeadlineCfg(int8_eval=False, out_dir=f"{tmp}/headline", **HEADLINE_CUTS)
+        _zero_counts(fp)
+        t0 = time.perf_counter()
+        table = run_headline(h, device="cuda")
+        wall = time.perf_counter() - t0
+        launches = _counts(fp)
+        with open(os.path.join(h.out_dir, "headline.json")) as f:
+            saved = json.load(f)
+        has_teacher = os.path.isdir(os.path.join(h.out_dir, "teacher"))
+    full = HeadlineCfg()
+    systems = ("teacher_lr", "student_bic", "student_sr")
+    metrics = ("verification_acc", "rank1", "cmc5", "tpir_at_fpir0.1")
+    for p in h.probe_sizes:
+        res = table["results"][str(p)]
+        for sysname in systems:
+            for metric in metrics:
+                v = res[sysname][metric]
+                if not 0.0 <= v <= 1.0:
+                    raise AssertionError(f"headline: {p} px {sysname} {metric} = {v}")
+        if res["student_sr"]["cmc5"] < res["student_sr"]["rank1"]:
+            raise AssertionError(f"headline: {p} px CMC-5 below rank-1")
+        st = table["stages"][f"students{p}"]
+        if not (np.isfinite(st["loss_sr"]) and np.isfinite(st["loss_bic"])
+                and np.isfinite(table["stages"][f"sr{p}"]["g_loss"])):
+            raise AssertionError(f"headline: {p} px losses {st}")
+    if not (has_teacher and saved["results"] == json.loads(json.dumps(table["results"]))
+            and saved["stages"]["n_train_imgs"] == h.ids_train * h.samples_per_id
+            and np.isfinite(saved["stages"]["teacher"]["loss"])):
+        raise AssertionError("headline: the artifact or the teacher's checkpoint is wrong")
+    return {"phase": "headline", "results": {p: {s: r[s] for s in systems}
+                                             for p, r in table["results"].items()},
+            "ordering_holds": {str(p): ordering_holds(table, p) for p in h.probe_sizes},
+            "ordering_holds_rank1": {str(p): ordering_holds(table, p, "rank1")
+                                     for p in h.probe_sizes},
+            "stages": table["stages"], "eval_s": {p: r["eval_s"]
+                                                  for p, r in table["results"].items()},
+            "total_s": table["total_s"], "wall_s": wall, "launches": launches,
+            "reduced": {k: f"{getattr(full, k)} -> {v}" for k, v in HEADLINE_CUTS.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1142,12 +1432,19 @@ def main() -> int:
     sr_extract = phase_sr_extract(fp)
     emit({**sr_extract, "card": smi})
     emit(phase_sr_cli())
+    distill = phase_distill(fp)
+    emit({**distill, "card": smi})
+    emit(phase_distill_cli())
+    headline = phase_headline(fp)
+    emit({**headline, "card": smi})
     # launches on each kernel's own main path: embed for the int form of the
     # preprocessing kernel, the gallery scan for bank_tilemax, a train step
     # for the form with a low per image, an SR train step for the resize
     paths = {"embed": embed["launches"], "gallery": gallery["launches"],
              "serve": serve["launches"], "train": train["launches"],
-             "sr_train": sr_train["launches"], "sr_extract": sr_extract["launches"]}
+             "sr_train": sr_train["launches"], "sr_extract": sr_extract["launches"],
+             **{f"distill_{p}": v["launches"] for p, v in distill["paths"].items()},
+             "headline": headline["launches"]}
     own = {"bank_tilemax": gallery, LOWS_NAME: train, "fused_resize_normalize": sr_train}
     for k in kernels:
         k["launches"] = own.get(k["name"], embed)["launches"][k["name"]]

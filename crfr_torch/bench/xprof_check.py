@@ -6,6 +6,7 @@ crfr/bench/xprof_check.py, with torch.profiler in place of jax.profiler, and
     python -m crfr_torch.bench.xprof_check --path gallery [--batch 256]
     python -m crfr_torch.bench.xprof_check --path train [--batch 512] [--steps 5]
     python -m crfr_torch.bench.xprof_check --path sr [--batch 256] [--steps 5]
+    python -m crfr_torch.bench.xprof_check --path distill [--batch 512] [--steps 5]
 
 ``embed`` runs ``steps`` back-to-back calls of the bf16 embed pipeline
 (``bench.throughput.build_embed_pipeline``); ``gallery`` runs ``steps``
@@ -18,7 +19,11 @@ device-resident batch, and splits the step's kernels into its own groups
 CE, the optimizer, the preprocessing); ``sr`` runs ``steps`` SR GAN steps
 (``train.sr_loop.SRTrainer``, the casia_arcface preset at scale 8 with 16
 priors, float32) on a device-resident batch, with the train groups plus the
-hourglass's pooling and upsampling and the peak of allocated memory. Each
+hourglass's pooling and upsampling and the peak of allocated memory;
+``distill`` runs ``steps`` residual-KD steps of a student on the bicubic
+path (``train.distill_loop.DistillTrainer``, the casia_arcface preset with
+``loss.distill_weight`` 1 and an IR-50 teacher at init) with the train
+groups and the peak of allocated memory. Each
 runs on one CUDA card, once
 untraced and once under the profiler, warmup outside both, and prints one
 JSON line: wall ms per call (untraced and traced), device busy ms per call
@@ -273,11 +278,53 @@ def trace_sr(batch: int = 256, steps: int = 5, scale: int = 8, n_priors: int = 1
     }
 
 
+def trace_distill(batch: int = 512, steps: int = 5, backbone: str = "ir_50",
+                  num_classes: int = 10572, top: int = 16, device: str | torch.device = "cuda",
+                  seed: int = 0) -> dict:
+    """One KD step per call (the teacher's no-grad forward of the HR batch,
+    one degrade launch, the student's step) on a device-resident batch; the
+    teacher's forward alone is traced beside it."""
+    from crfr_torch.bench.throughput import train_config
+    from crfr_torch.train.distill_loop import DistillTrainer, teacher_from_trainer
+    from crfr_torch.train.loop import Trainer
+
+    dev = _cuda(device)
+    cfg = train_config(backbone, num_classes, 112, batch).override(
+        **{"loss.distill_weight": 1.0})
+    teacher = teacher_from_trainer(Trainer(cfg, device=dev))
+    tr = DistillTrainer(cfg, teacher, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randint(0, 256, (batch, 112, 112, 3), generator=g, device=dev, dtype=torch.uint8)
+    y = torch.randint(0, num_classes, (batch,), generator=g, device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    r = _profile(lambda: tr.train_step(x, y), steps, dev, top, _TRAIN_GROUPS)
+    from crfr_torch.ops.normalize import normalize
+
+    teacher_ms = _profile(lambda: teacher(normalize(x)), steps, dev, top, _TRAIN_GROUPS)
+    return {
+        "backbone": backbone, "batch": batch, "classes": num_classes, "steps": steps,
+        "preset": "casia_arcface", "distill_weight": 1.0, "card": _card(),
+        "wall_ms_per_step": r["wall_ms"],
+        "teacher_forward_wall_ms": teacher_ms["wall_ms"],
+        "teacher_forward_busy_ms": teacher_ms["device_busy_ms"],
+        "imgs_per_s_untraced": 1e3 * batch / r["wall_ms"],
+        "traced_wall_ms_per_step": r["traced_wall_ms"],
+        "device_busy_ms_per_step": r["device_busy_ms"],
+        "idle_share_traced": r["idle_share_traced"],
+        "kernel_launches_per_step": r["kernel_launches"],
+        "peak_bytes": torch.cuda.max_memory_allocated(dev),
+        "group_ms_per_step": r["group_ms"],
+        "heaviest": [{"name": h["name"], "ms_per_step": h["ms"], "calls_per_step": h["calls"]}
+                     for h in r["heaviest"]],
+    }
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("embed", "gallery", "train", "sr"), default="embed")
+    ap.add_argument("--path", choices=("embed", "gallery", "train", "sr", "distill"),
+                    default="embed")
     ap.add_argument("--batch", type=int, default=0,
-                    help="images or probes per call (256; 512 for train)")
+                    help="images or probes per call (256; 512 for train and distill)")
     ap.add_argument("--steps", type=int, default=0, help="calls per window (10; 5 for train)")
     ap.add_argument("--backbone", default="ir_50")
     args = ap.parse_args()
@@ -287,6 +334,8 @@ def main() -> None:
         out = trace_gallery(args.batch or 256, steps=args.steps or 10)
     elif args.path == "train":
         out = trace_train(args.batch or 512, args.steps or 5, args.backbone)
+    elif args.path == "distill":
+        out = trace_distill(args.batch or 512, args.steps or 5, args.backbone)
     else:
         out = trace_sr(args.batch or 256, args.steps or 5)
     print(json.dumps(out), flush=True)

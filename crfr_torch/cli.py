@@ -11,6 +11,15 @@
         [--r1-gamma G] [--train-records PATH.crfrpack] [--tensorboard DIR]
         [--device cuda|cpu]
 
+    python -m crfr_torch train-distill --teacher-ckpt DIR --preset casia_arcface
+        [key=value ...] [--kd-weight W] [--max-steps N] [--resume]
+        [--sr-ckpt DIR [--sr-scale 8] [--sr-bicubic-skip 1|0]
+         [--sr-finetune [--sr-lr LR] [--sr-pixel-weight W]]]
+        [--tensorboard DIR] [--device cuda|cpu]
+
+    python -m crfr_torch headline [--out DIR] [--probe-sizes 16,8] [--seeds N]
+        [--device cuda|cpu] int8_eval=0 [field=value ...]
+
 ``train`` writes JSONL metrics and checkpoints under ``train.checkpoint_dir``
 (``data_state.json`` beside them when it reads records), resumes from the
 latest checkpoint with ``--resume``, and prints ``{"final_step": N}``. It
@@ -25,6 +34,20 @@ taken), with checkpoints under ``<checkpoint_dir>/sr`` and metrics in
 ``<checkpoint_dir>/sr_metrics.jsonl``, and prints ``{"g_loss", "d_loss",
 "steps"}``. ``--teacher-ckpt`` restores a ``train`` checkpoint as the
 frozen teacher of the identity term; ``--perceptual`` needs it.
+
+``train-distill`` trains a student with residual KD
+(``train.distill_loop.DistillTrainer``) against the frozen teacher of
+``--teacher-ckpt`` (restored with its own config), on the same feed
+(``data.train_records`` or synthetic batches), with
+checkpoints under ``<checkpoint_dir>/student`` and metrics in
+``<checkpoint_dir>/distill_metrics.jsonl``, and prints the last step's
+losses and ``"steps"``. ``--sr-ckpt`` feeds the student hallucinated faces
+from a frozen G; with ``--sr-finetune`` G trains jointly and checkpoints
+with the student.
+
+``headline`` runs the paper's composed experiment
+(``experiments.headline``) and prints its results and the ordering per
+probe size; ``HeadlineCfg`` fields are key=value overrides.
 """
 
 from __future__ import annotations
@@ -33,6 +56,7 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 import time
 
 
@@ -127,12 +151,58 @@ def cmd_train(args, overrides: list[str]) -> int:
     return 0
 
 
+def _restore_teacher(ckpt_dir: str, cfg, device):
+    """A recognition ``Trainer`` restored from a ``train`` checkpoint, with
+    the checkpoint's own config (``cfg`` where it has none)."""
+    from crfr_torch.configs import Config
+    from crfr_torch.train.checkpoints import Checkpointer
+    from crfr_torch.train.loop import Trainer
+
+    tck = Checkpointer(ckpt_dir, keep=1)
+    tcfg = tck.restore_config()
+    teacher = Trainer(Config.from_dict(tcfg) if tcfg else cfg, device=device)
+    teacher.state = tck.restore(teacher.state)
+    return teacher
+
+
+def _run_steps(tr, cfg, ck, max_steps: int, step_fn) -> dict:
+    """Feed ``step_fn(images, labels)`` from ``tr.step`` to ``max_steps``
+    (1000 steps from the start when 0): records from the start step on, or
+    synthetic batch k from (seed, k); a checkpoint every
+    ``checkpoint_every_steps`` and at the end. Returns the last metrics."""
+    from crfr_torch.train.feed import device_feed
+
+    start = tr.step
+    stop = max_steps or start + 1000
+    if cfg.data.train_records:
+        from crfr_torch.data.pipeline import PipelineCfg, train_batches
+        from crfr_torch.data.records import open_source
+
+        batches = train_batches(open_source(cfg.data.train_records), PipelineCfg(
+            batch_size=cfg.train.batch_size, seed=cfg.train.seed,
+            random_flip=cfg.data.random_flip), start_step=start)
+    else:
+        batches = _synthetic_batches(cfg, start, stop)
+    m = {}
+    try:
+        for imgs, labels in device_feed(batches, tr.device):
+            if tr.step >= stop:
+                break
+            m = step_fn(imgs, labels)
+            if tr.step % cfg.train.checkpoint_every_steps == 0:
+                ck.save(tr.step, tr.state_dict(), cfg.to_json())
+    finally:
+        if cfg.data.train_records:
+            batches.close()
+    if tr.step and ck.latest_step() != tr.step:
+        ck.save(tr.step, tr.state_dict(), cfg.to_json(), force=True)
+    return m
+
+
 def cmd_train_sr(args, overrides: list[str]) -> int:
-    from crfr_torch.configs import Config, get_config
+    from crfr_torch.configs import get_config
     from crfr_torch.train.checkpoints import Checkpointer
     from crfr_torch.train.distill_loop import teacher_from_trainer
-    from crfr_torch.train.feed import device_feed
-    from crfr_torch.train.loop import Trainer
     from crfr_torch.train.sr_loop import SRTrainer, perceptual_from_trainer
     from crfr_torch.utils.logging import MetricsWriter
 
@@ -146,10 +216,7 @@ def cmd_train_sr(args, overrides: list[str]) -> int:
         cfg = cfg.override(**{"data.train_records": args.train_records})
     teacher_fn = perceptual_fn = None
     if args.teacher_ckpt:
-        tck = Checkpointer(args.teacher_ckpt, keep=1)
-        tcfg = tck.restore_config()
-        teacher = Trainer(Config.from_dict(tcfg) if tcfg else cfg, device=args.device)
-        teacher.state = tck.restore(teacher.state)
+        teacher = _restore_teacher(args.teacher_ckpt, cfg, args.device)
         teacher_fn = teacher_from_trainer(teacher)
         if args.perceptual > 0:
             cfg = cfg.override(**{"loss.sr_perceptual_weight": args.perceptual})
@@ -167,34 +234,93 @@ def cmd_train_sr(args, overrides: list[str]) -> int:
     if args.resume and ck.latest_step() is not None:
         tr.restore_from(ck)
         print(f"resumed SR from step {tr.step}", file=sys.stderr)
-    start = tr.step
-    stop = args.max_steps or start + 1000
-    if cfg.data.train_records:
-        from crfr_torch.data.pipeline import PipelineCfg, train_batches
-        from crfr_torch.data.records import open_source
-
-        batches = train_batches(open_source(cfg.data.train_records), PipelineCfg(
-            batch_size=cfg.train.batch_size, seed=cfg.train.seed,
-            random_flip=cfg.data.random_flip), start_step=start)
-    else:
-        batches = _synthetic_batches(cfg, start, stop)
-    m = {}
-    try:
-        for imgs, _ in device_feed(batches, tr.device):
-            if tr.step >= stop:
-                break
-            m = tr.train_step(imgs)
-            if tr.step % cfg.train.checkpoint_every_steps == 0:
-                ck.save(tr.step, tr.state_dict(), cfg.to_json())
-    finally:
-        if cfg.data.train_records:
-            batches.close()
-    if tr.step and ck.latest_step() != tr.step:
-        ck.save(tr.step, tr.state_dict(), cfg.to_json(), force=True)
+    m = _run_steps(tr, cfg, ck, args.max_steps, lambda imgs, _: tr.train_step(imgs))
     metrics.close()
     print(json.dumps({"g_loss": float(m.get("g_loss", float("nan"))),
                       "d_loss": float(m.get("d_loss", float("nan"))),
                       "steps": tr.step}), flush=True)
+    return 0
+
+
+def cmd_train_distill(args, overrides: list[str]) -> int:
+    from crfr_torch.configs import get_config
+    from crfr_torch.train.checkpoints import Checkpointer
+    from crfr_torch.train.distill_loop import DistillTrainer, teacher_from_trainer
+    from crfr_torch.train.sr_loop import SRTrainer, load_sr_apply
+    from crfr_torch.utils.logging import MetricsWriter
+
+    if args.eval_bin:
+        raise NotImplementedError("--eval-bin needs data/bins.py, which is not ported yet "
+                                  "(ROADMAP.md item 13)")
+    if args.sr_finetune and not args.sr_ckpt:
+        raise ValueError("--sr-finetune requires --sr-ckpt")
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError("training in more than one process is not ported yet "
+                                  "(ROADMAP.md item 13)")
+    cfg = get_config(args.preset, overrides)
+    if cfg.loss.distill_weight <= 0:
+        cfg = cfg.override(**{"loss.distill_weight": args.kd_weight})
+    teacher = _restore_teacher(args.teacher_ckpt, cfg, args.device)
+    sr_fn = sr_module = None
+    if args.sr_finetune:            # G trains with the student and checkpoints with it
+        sr_tr = SRTrainer(cfg, scale=args.sr_scale, bicubic_skip=bool(args.sr_bicubic_skip),
+                          device=args.device)
+        sr_tr.restore_from(Checkpointer(args.sr_ckpt, keep=1))
+        sr_module = sr_tr._serve_module(ema=True)
+        del sr_tr
+    elif args.sr_ckpt:
+        sr_fn = load_sr_apply(args.sr_ckpt, cfg, scale=args.sr_scale,
+                              bicubic_skip=bool(args.sr_bicubic_skip), device=args.device)
+    metrics = MetricsWriter(os.path.join(cfg.train.checkpoint_dir, "distill_metrics.jsonl"),
+                            tensorboard_dir=args.tensorboard or None)
+    st = DistillTrainer(cfg, teacher_from_trainer(teacher), metrics=metrics, sr_fn=sr_fn,
+                        sr_scale=args.sr_scale, sr_module=sr_module, sr_lr=args.sr_lr,
+                        sr_pixel_weight=args.sr_pixel_weight, device=args.device)
+    del teacher, sr_module
+    sck = Checkpointer(os.path.join(cfg.train.checkpoint_dir, "student"),
+                       keep=cfg.train.keep_checkpoints)
+    if args.resume and sck.latest_step() is not None:
+        st.load_state_dict(sck.restore(st.state_dict()))
+        print(f"resumed student from step {st.step}", file=sys.stderr)
+    m = _run_steps(st, cfg, sck, args.max_steps, st.train_step)
+    metrics.close()
+    print(json.dumps({k: float(v) for k, v in m.items()} | {"steps": st.step}), flush=True)
+    return 0
+
+
+def cmd_headline(args, overrides: list[str]) -> int:
+    import dataclasses
+
+    from crfr_torch.experiments.headline import (HeadlineCfg, ordering_holds, run_headline,
+                                                  run_headline_seeds)
+
+    defaults = HeadlineCfg()
+    kv = {}
+    for ov in overrides:
+        k, v = ov.split("=", 1)
+        if not hasattr(defaults, k):
+            valid = [f.name for f in dataclasses.fields(HeadlineCfg)]
+            raise KeyError(f"unknown headline field {k!r}; valid: {valid}")
+        d = getattr(defaults, k)
+        if isinstance(d, bool):              # bool("0") is True: parse it
+            kv[k] = v.lower() in ("1", "true", "yes")
+        elif isinstance(d, tuple):
+            kv[k] = tuple(int(x) for x in v.split(","))
+        else:
+            kv[k] = type(d)(v)
+    kv.setdefault("probe_sizes", tuple(int(s) for s in args.probe_sizes.split(",") if s))
+    h = dataclasses.replace(defaults, out_dir=args.out, **kv)
+    if args.seeds > 1:
+        out = run_headline_seeds(h, args.seeds, device=args.device)
+        print(json.dumps({"aggregate": out["aggregate"], "total_s": out["total_s"]}),
+              flush=True)
+        return 0
+    table = run_headline(h, device=args.device)
+    print(json.dumps({"results": table["results"], "stages": table["stages"],
+                      "total_s": table["total_s"],
+                      "ordering": {str(p): ordering_holds(table, p) for p in h.probe_sizes},
+                      "ordering_rank1": {str(p): ordering_holds(table, p, "rank1")
+                                         for p in h.probe_sizes}}), flush=True)
     return 0
 
 
@@ -248,6 +374,43 @@ def main(argv: list[str] | None = None) -> int:
                    help="also mirror metrics to TensorBoard event files")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_train_sr)
+
+    p = sub.add_parser("train-distill", help="a student with residual KD on one device")
+    p.add_argument("--preset", default="casia_arcface")
+    p.add_argument("--teacher-ckpt", required=True,
+                   help="recognition checkpoint (of train), restored with its own config")
+    p.add_argument("--kd-weight", type=float, default=1.0,
+                   help="loss.distill_weight when the preset's is 0")
+    p.add_argument("--max-steps", type=int, default=0,
+                   help="stop at this global step (0: 1000 steps from the start)")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--sr-ckpt", default="",
+                   help="hallucinator checkpoint (of train-sr): the student consumes G(lr)")
+    p.add_argument("--sr-scale", type=int, default=8)
+    p.add_argument("--sr-bicubic-skip", type=int, default=1,
+                   help="the G of --sr-ckpt was trained with the bicubic skip (1) or not (0)")
+    p.add_argument("--sr-finetune", action="store_true",
+                   help="fine-tune G jointly with the student (needs --sr-ckpt); G's state "
+                        "checkpoints with the student")
+    p.add_argument("--sr-lr", type=float, default=1e-5)
+    p.add_argument("--sr-pixel-weight", type=float, default=0.3,
+                   help="weight of the pixel anchor of joint G fine-tuning")
+    p.add_argument("--eval-bin", default="", help="not ported yet")
+    p.add_argument("--tensorboard", default="",
+                   help="also mirror metrics to TensorBoard event files")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_train_distill)
+
+    p = sub.add_parser("headline", help="the paper's composed experiment")
+    p.add_argument("--out", default=os.path.join(tempfile.gettempdir(), "crfr_headline"),
+                   help="stage checkpoints and headline.json land here")
+    p.add_argument("--seeds", type=int, default=1,
+                   help=">1: that many replicates (seed, seed+1000, ...) aggregated into "
+                        "headline_seeds.json")
+    p.add_argument("--probe-sizes", default="16,8",
+                   help="comma-separated LR probe sizes (each divides the image size)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_headline)
 
     args, extra = ap.parse_known_args(argv)
     overrides, unknown = _split_overrides(extra)

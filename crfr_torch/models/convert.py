@@ -17,7 +17,11 @@ leaf names and layouts change:
 ``train_state_from_jax`` does the same for a ``crfr`` ``Trainer``'s
 ``params`` and ``batch_stats`` (paths ``backbone/...`` and ``head/weight``):
 a ``state_dict`` for ``crfr_torch.train.loop.FaceTrainModel``, the head's
-W kept as (D, C).
+W kept as (D, C). ``student_state_from_jax`` does it for the distilled
+student (``crfr.train.distill_loop.StudentModel``), whose residual branch
+adds ``residual/fc1/kernel`` and ``residual/fc2/kernel`` (transposed),
+their biases, ``residual/prelu/alpha`` and the BN's scale, bias and
+statistics: a ``state_dict`` for ``crfr_torch.train.distill_loop.StudentModel``.
 
 The SR networks need no converter of their own: ``crfr_torch.models.sr``
 keeps ``crfr.models.sr``'s module names and leaves, so ``params_from_jax``
@@ -65,13 +69,25 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
     return sd
 
 
-def train_state_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+def train_state_from_jax(flat: Mapping[str, np.ndarray],
+                         modules: tuple[str, ...] = ("backbone",)) -> dict[str, torch.Tensor]:
     """A ``crfr`` trainer's parameters and BN statistics, keyed by their
-    '/'-joined nnx paths, → ``FaceTrainModel.state_dict()``."""
-    backbone = {k[len("backbone/"):]: v for k, v in flat.items() if k.startswith("backbone/")}
-    rest = set(flat) - {f"backbone/{k}" for k in backbone} - {"head/weight"}
+    '/'-joined nnx paths, → ``FaceTrainModel.state_dict()``: the submodules
+    ``modules`` through ``params_from_jax``, and the head's W."""
+    sd: dict[str, torch.Tensor] = {}
+    taken = {"head/weight"}
+    for mod in modules:
+        part = {k[len(mod) + 1:]: v for k, v in flat.items() if k.startswith(f"{mod}/")}
+        taken |= {f"{mod}/{k}" for k in part}
+        sd.update({f"{mod}.{k}": v for k, v in params_from_jax(part).items()})
+    rest = set(flat) - taken
     if rest:
         raise KeyError(f"{sorted(rest)}: no counterpart in crfr_torch")
-    sd = {f"backbone.{k}": v for k, v in params_from_jax(backbone).items()}
     sd["head.weight"] = torch.from_numpy(np.array(flat["head/weight"], dtype=np.float32))
     return sd
+
+
+def student_state_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """A ``crfr`` ``StudentModel``'s parameters and BN statistics →
+    ``distill_loop.StudentModel.state_dict()``."""
+    return train_state_from_jax(flat, ("backbone", "residual"))

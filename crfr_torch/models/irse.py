@@ -216,7 +216,7 @@ class IRBackbone(nn.Module):
             x = _dropout(x, self.out_dropout.p, generator)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)   # H·W·C order
         x = self.out_linear(x)
-        return self.out_feat_bn(x.float())
+        return self.out_feat_bn(x.to(self.out_feat_bn.weight.dtype))   # float32
 
     def features(self, x: torch.Tensor) -> list[torch.Tensor]:
         """Stage-boundary feature maps, finest → coarsest, as NHWC views."""

@@ -12,6 +12,8 @@ One step:
       statistics as flax keeps them (``models.irse``)
     → margin-softmax CE in true float32, outside autocast: dense (one
       (B, D)×(D, C) product) or streaming over class blocks
+    [+ λ·‖emb − t‖² against a frozen teacher's embedding t of the HR batch,
+      normalised, once ``set_teacher`` is called and loss.distill_weight > 0]
     → global-norm clip (optional) → weight decay on conv and linear
       weights and the head's W → SGD with momentum, as optax's chain.
 
@@ -30,8 +32,7 @@ mirrors the step count, and the metrics stay device tensors until a caller
 asks for them.
 
 Not ported: more than one device (the class-sharded CE and any mesh of
-more than one device raise ``NotImplementedError``) and residual KD
-(``set_teacher`` raises).
+more than one device raise ``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from torch import nn
 from crfr_torch.configs import Config
 from crfr_torch.device import refuse_mesh, resolve_device
 from crfr_torch.losses.arcface import MarginHead, streaming_margin_ce
+from crfr_torch.losses.distill import residual_kd_loss
 from crfr_torch.models.irse import build_backbone
 from crfr_torch.ops.fused_preprocess import fused_degrade_normalize
 from crfr_torch.ops.normalize import normalize
@@ -180,8 +182,10 @@ class Trainer:
         self.device = resolve_device("cuda" if device is None else device)
         self.metrics = metrics or MetricsWriter(stdout=False)
         self.steps_per_epoch = steps_per_epoch
-        self.model = FaceTrainModel(cfg, torch.Generator().manual_seed(cfg.train.seed))
+        self.model = self._build_model(cfg)
         self.model.to(self.device).train()
+        self._step_seed_base = cfg.train.seed
+        self._teacher_fn: Callable | None = None
         self.schedule = lr_schedule(cfg, steps_per_epoch)
         self.tx = make_sgd_tx(cfg, self.model, self.schedule)
         self.compute_dtype = (torch.bfloat16 if cfg.model.compute_dtype == "bfloat16"
@@ -209,8 +213,15 @@ class Trainer:
         the device; kept for callers written against ``crfr``."""
         return self.host_step
 
+    def _build_model(self, cfg: Config) -> nn.Module:
+        return FaceTrainModel(cfg, torch.Generator().manual_seed(cfg.train.seed))
+
     def set_teacher(self, teacher_apply: Callable[[torch.Tensor], torch.Tensor]):
-        raise NotImplementedError("residual KD (set_teacher) is not ported yet")
+        """Turn on the KD term: ``teacher_apply`` (normalized HR pixels →
+        (B, D) embeddings, frozen, e.g. ``distill_loop.teacher_from_trainer``)
+        sees each step's batch before degradation, and the loss gains
+        ``loss.distill_weight``·‖emb − t‖² while that weight is above 0."""
+        self._teacher_fn = teacher_apply
 
     @property
     def state(self) -> dict:
@@ -228,7 +239,7 @@ class Trainer:
 
     def _generator(self, step: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(
-            _step_seed(self.cfg.train.seed, step))
+            _step_seed(self._step_seed_base, step))
 
     def _preprocess(self, x: torch.Tensor, gen: torch.Generator,
                     lows: torch.Tensor | None) -> torch.Tensor:
@@ -264,27 +275,54 @@ class Trainer:
                                        block=lc.ce_block, num_valid=head.num_valid)
         return head.loss(emb, labels)
 
+    def _student_input(self, raw: torch.Tensor, gen: torch.Generator,
+                       lows: torch.Tensor | None) -> torch.Tensor:
+        """The backbone's normalized input from the raw batch: ``_preprocess``."""
+        return self._preprocess(raw, gen, lows)
+
+    def _extra_terms(self, raw: torch.Tensor, x: torch.Tensor, emb: torch.Tensor,
+                     t: torch.Tensor | None) -> dict[str, torch.Tensor]:
+        """Loss terms added to the CE, by name, from the raw batch, the
+        backbone's input ``x``, its embeddings and the teacher's embeddings
+        ``t`` of the normalised HR batch (None without the KD term): the KD
+        term."""
+        if t is None:
+            return {}
+        return {"kd": residual_kd_loss(emb, 0.0, t, weight=self.cfg.loss.distill_weight)}
+
     def train_step(self, images, labels, lows=None) -> dict[str, torch.Tensor]:
         """One step. ``images`` (B, S, S, 3) uint8/f32 raw pixels, ``labels``
         (B,), numpy or tensors; ``lows`` (B,) each image's low in place of
         the step's own draw, each in [degrade_min, degrade_max] (checked
         when they come from the host; lows already on the card are not
         read back). Returns device scalars ``loss`` and
-        ``grad_norm`` (of the raw gradients)."""
+        ``grad_norm`` (of the raw gradients), and with extra terms the
+        ``ce`` and each term by name."""
         step = self.host_step
         gen = self._generator(step)
-        x = self._preprocess(_as_tensor(images, self.device), gen, lows)
+        raw = _as_tensor(images, self.device)
+        t = None                        # the teacher first: its transients go before the graph
+        if self._teacher_fn is not None and self.cfg.loss.distill_weight > 0:
+            t = self._teacher_fn(normalize(raw))
+        x = self._student_input(raw, gen, lows)
         y = _as_tensor(labels, self.device).long()
         self.model.train()
         with torch.autocast(self.device.type, dtype=torch.bfloat16,
                             enabled=self.compute_dtype == torch.bfloat16):
             emb = self.model.backbone(x, generator=gen)
-        loss = self._loss(emb, y)
+        ce = self._loss(emb, y)
+        terms = self._extra_terms(raw, x, emb, t)
+        loss = ce
+        for term in terms.values():
+            loss = loss + term
         self.tx.opt.zero_grad(set_to_none=True)
         loss.backward()
         gnorm = self.tx.step(step)
         self.host_step += 1
-        return {"loss": loss.detach(), "grad_norm": gnorm}
+        m = {"loss": loss.detach(), "grad_norm": gnorm}
+        if terms:
+            m.update(ce=ce.detach(), **{k: v.detach() for k, v in terms.items()})
+        return m
 
     def fit(self, batches: Iterable, max_steps: int | None = None,
             eval_fn: Callable[["Trainer"], dict] | None = None) -> dict[str, float]:

@@ -94,7 +94,15 @@ class _Adam:
         parameters alone (a parameter the loss does not reach gets zeros)."""
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         for p, g in zip(self.params, grads):
-            p.grad = torch.zeros_like(p) if g is None else g
+            p.grad = g
+        self.apply()
+
+    def apply(self) -> None:
+        """Update from the gradients in ``.grad`` (zeros where there are
+        none), then clear them."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         lr = float(self.schedule(self.count()))
         for group in self.opt.param_groups:
             group["lr"] = lr

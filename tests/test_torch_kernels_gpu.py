@@ -2,7 +2,9 @@
 preprocessing kernel (with an int low, a low per image, or a resize, the
 SR probe's ↓ among them), ``bank_tilemax`` with the fused gallery path,
 and the one launch of the preprocessing kernel in a train step, an SR
-train step and a hallucinated extract batch.
+train step, a hallucinated extract batch, and a residual-KD step on each
+input path (a fixed low, a low per batch, a low per image, a frozen G, G
+trained jointly), the teacher's KD term on the trainer included.
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor crfr, so it also runs where only PyTorch is installed:
@@ -320,6 +322,63 @@ def test_train_step_launches_the_kernel_once(cuda):
     after = (fp.fused_degrade_normalize.launches, fp.fused_degrade_normalize.lows_launches)
     assert (after[0] - before[0], after[1] - before[1]) == (0, 1)
     assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+
+
+@pytest.mark.parametrize("path,want", [
+    ("fixed_low", (0, 1, 0)), ("low_per_batch", (0, 0, 1)), ("low_per_image", (0, 0, 1)),
+    ("frozen_g", (1, 0, 0)), ("joint_g", (1, 0, 0))])
+def test_kd_step_launches_the_kernel_once(cuda, path, want):
+    """One residual-KD step of a small config on the card: one launch of
+    the kernel's form for the path (resize, int degrade, degrade with a
+    low per image), finite losses, every student parameter moved."""
+    from crfr_torch.configs import get_config
+    from crfr_torch.models.sr import build_hallucinator
+    from crfr_torch.train.distill_loop import DistillTrainer, teacher_from_trainer
+    from crfr_torch.train.loop import Trainer
+    from crfr_torch.train.sr_loop import sr_apply_from_state
+
+    ov = {"fixed_low": ["data.degrade_min=16", "data.degrade_max=16"],
+          "low_per_batch": ["data.per_sample_degrade=false"]}.get(path, [])
+    cfg = get_config("casia_arcface", ["model.backbone=ir_18", "data.num_classes=32",
+                                       "train.batch_size=16", "loss.distill_weight=0.05",
+                                       "train.warmup_steps=0", *ov])
+    kw = {"frozen_g": {"sr_scale": 8, "sr_fn": sr_apply_from_state(
+              build_hallucinator(8, 4).to(cuda))},
+          "joint_g": {"sr_scale": 8, "sr_module": build_hallucinator(8, 4)}}.get(path, {})
+    st = DistillTrainer(cfg, teacher_from_trainer(Trainer(cfg, device=cuda)), device=cuda, **kw)
+    x = _pixels((16, 112, 112, 3), torch.uint8, cuda)
+    y = torch.arange(16, device=cuda)
+    before_p = [p.detach().clone() for p in st.model.parameters()]
+    before = _counts()
+    m = st.train_step(x, y)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_counts(), before)) == want
+    assert all(torch.isfinite(v) for v in m.values())
+    assert all(not torch.equal(a, b) for a, b in zip(before_p, st.model.parameters()))
+
+
+def test_trainer_kd_term_on_the_card(cuda):
+    """``Trainer.set_teacher``: the step's loss grows by the KD term, one
+    degrade launch still."""
+    from crfr_torch.configs import get_config
+    from crfr_torch.train.distill_loop import teacher_from_trainer
+    from crfr_torch.train.loop import Trainer
+
+    cfg = get_config("casia_arcface", ["model.backbone=ir_18", "data.num_classes=32",
+                                       "loss.distill_weight=0.05"])
+    x = _pixels((16, 112, 112, 3), torch.uint8, cuda)
+    y = torch.arange(16, device=cuda)
+    lows = torch.full((16,), 20, dtype=torch.int32, device=cuda)
+    losses = []
+    for teach in (False, True):
+        tr = Trainer(cfg, device=cuda)
+        if teach:
+            tr.set_teacher(teacher_from_trainer(Trainer(cfg.override(**{"train.seed": 5}),
+                                                        device=cuda)))
+        before = _counts()
+        losses.append(tr.train_step(x, y, lows=lows)["loss"].item())
+        assert tuple(a - b for a, b in zip(_counts(), before)) == (0, 0, 1)
+    assert losses[1] > losses[0]
 
 
 def _bank(n, m, d, invalid, device, seed=0):

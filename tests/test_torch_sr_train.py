@@ -91,7 +91,7 @@ def test_losses_per_step_match_crfr(twin_run):
     assert metrics[1][0]["g_loss"] > 10 * metrics[0][0]["g_loss"]     # the prior term is on
 
 
-def assert_state_matches(want: dict, got: dict, steps: int) -> list:
+def assert_state_matches(want: dict, got: dict, steps: int, lr: float = LR) -> list:
     """``got`` (a port state_dict) against ``want`` (crfr's, converted)
     within TOL, but for Adam's sign flips: each within 2·lr·steps, fewer
     than 1e-4 of the elements in all. Returns the flips (name, count, max)."""
@@ -105,7 +105,7 @@ def assert_state_matches(want: dict, got: dict, steps: int) -> list:
         out = np.abs(g - w) > TOL["atol"] + TOL["rtol"] * np.abs(w)
         if out.any():
             flips.append((k, int(out.sum()), float(np.abs(g - w)[out].max())))
-            assert np.abs(g - w)[out].max() <= 2 * LR * steps, (k, flips[-1])
+            assert np.abs(g - w)[out].max() <= 2 * lr * steps, (k, flips[-1])
     n_flips = sum(n for _, n, _ in flips)
     assert n_flips < 1e-4 * total, f"{n_flips} Adam sign flips of {total} elements: {flips}"
     return flips
