@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of crfr_torch on one CUDA card: kernels, embed, verify,
 gallery, serve, train, the train CLI, SR training, hallucinated
-extraction, the SR CLI, residual KD, the KD CLI, the headline experiment.
+extraction, the SR CLI, residual KD, the KD CLI, the int8 embed path, the
+int8 serving CLI, the headline experiment.
 
     python3 chip_smoke.py
 
@@ -125,13 +126,38 @@ Phases, each printing one JSON line:
    ``--resume`` to 6 and 6 straight, with cuDNN's deterministic
    algorithms: the resumed state equals the straight one bit for bit; one
    run with ``--sr-ckpt`` (G at init);
-14. headline: ``run_headline`` at HeadlineCfg's widths, identities and
+14. int8_embed: ``build_embed_pipeline("ir_50", int8=True)`` at B=256, 16
+   px pil (weights from seed 0, quantized from float32, calibrated on two
+   batches of 32 seeded noise images as crfr's bench does): exactly one
+   launch of kernel 1 a batch, 53 ``QuantConv``s; the card's embeddings
+   against the same quantized model on CPU tensors (``INT8_CPU_ROWS``
+   images: the input conv's s32 sums equal, cosine > 0.999 a row); the
+   cosine to the bf16 float pipeline (reported); ms a batch of both
+   pipelines in turns (bf16, int8, int8, bf16); the peak of allocated
+   memory; and each of IR-50's 17 conv shapes at B=256 (``QuantConv``
+   whole and its ``torch._int_mm`` alone against cuDNN's bf16 conv, beside
+   the int8 bound);
+15. int8_cli: ``python -m crfr_torch train`` for 2 steps makes a
+   checkpoint; on 1,024 seeded noise PNGs written here (two full batches,
+   so no zero padding enters the calibration), ``extract --degrade 16``
+   (float), ``extract --int8``, ``extract --quantize-bank`` and ``match
+   --int8`` against the bank, run in this process so the launch counters
+   are read around each: cosine > 0.98 between the int8 and float
+   embeddings (crfr's bound), top-1 every probe's own row, kernel 1 once a
+   batch, ``bank_tilemax`` at least once in ``match`` (the fused scan).
+   ``extract --int8`` on the first 640 images, whose calibration takes
+   crfr's 384 padding zeros, is reported beside it, not bounded.
+   Without PIL it prints ``{"phase": "int8_cli", "run": false, ...}``;
+16. headline: ``run_headline`` at HeadlineCfg's widths, identities and
    batch (IR-18 bf16, b64, 96/64/64 identities × 48 samples, probes 16
    and 8 px) with the steps and the eval mass cut (``HEADLINE_CUTS``,
-   listed in ``reduced``) and the int8 row off: the table's schema,
-   finite losses, the stage checkpoint and the JSON artifact; the results,
-   ``ordering_holds`` (reported, not asserted: the steps are cut), the
-   render and stage seconds.
+   listed in ``reduced``) and the int8 row on: the table's schema, the
+   int8 table's (each value in [0, 1], each system's int8 verification
+   accuracy at least its float one − 0.05), the int8 ``student_sr``
+   embedder's kernel-2 launches (one a batch), finite losses, the stage
+   checkpoint and the JSON artifact; the results, ``ordering_holds``
+   (reported, not asserted: the steps are cut), the render and stage
+   seconds.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the exit code is
@@ -1345,25 +1371,308 @@ def phase_distill_cli() -> dict:
             "resumed_equals_straight": True, "wall_s_five_runs": wall}
 
 
+INT8_CPU_ROWS = 4                      # the card-vs-CPU check's images (an IR-50 int8
+                                       # forward on the host's cores takes seconds an image)
+
+
+@torch.no_grad()
+def conv_inputs(model, x: torch.Tensor) -> list[tuple]:
+    """(conv, input shape) of each conv of groups 1 of ``model``, in call
+    order, on one eval-mode forward of ``x``."""
+    from crfr_torch.models.quant import quantizable_convs
+
+    seen = []
+    handles = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, tuple(args[0].shape))))
+        for _, m in quantizable_convs(model)]
+    model.eval()
+    try:
+        model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return seen
+
+
+def _int8_shape_table(b: int) -> list[dict]:
+    """Each of IR-50's distinct conv shapes at batch ``b``: one ``QuantConv``
+    (bf16 in and out) timed whole and its ``torch._int_mm`` alone, against
+    cuDNN's bf16 convolution of the same input and weights, beside the int8
+    bound (2 ops a MAC at the int8 peak, or the bytes of the bf16 input,
+    the int8 weights and the bf16 output)."""
+    import torch.nn.functional as F
+
+    from crfr_torch.models.irse import build_backbone
+    from crfr_torch.models.quant import QuantConv, gather_patches, int8_matmul
+
+    model = build_backbone("ir_50", generator=torch.Generator().manual_seed(0)).cuda()
+    seen = conv_inputs(model, torch.zeros(1, S, S, 3, device="cuda"))
+    shapes: dict[tuple, list] = {}
+    for conv, shape in seen:
+        key = (conv.in_channels, conv.out_channels, conv.kernel_size[0], conv.stride[0],
+               shape[2])
+        shapes.setdefault(key, [conv, 0])[1] += 1
+    rows = []
+    for (cin, cout, k, stride, side), (conv, count) in shapes.items():
+        g = torch.Generator(device="cuda").manual_seed(side + cin)
+        x = torch.randn((b, cin, side, side), generator=g, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        q = QuantConv(conv, x.abs().amax().item()).to(torch.bfloat16)
+        w16 = conv.weight.detach().to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        xq = torch.round(x.float() / q.sx).clamp_(-127, 127).to(torch.int8)
+        patches, (_, ho, wo) = gather_patches(xq.permute(0, 2, 3, 1), q.kernel_size, q.stride,
+                                              q.padding, q.dilation, q.wmat.shape[1])
+        del xq
+        int8_ms = cuda_ms(lambda: q(x), iters=10)
+        int_mm_ms = cuda_ms(lambda: int8_matmul(patches, q.wmat), iters=10)
+        cudnn_ms = cuda_ms(lambda: F.conv2d(x, w16, None, conv.stride, conv.padding), iters=10)
+        macs = b * ho * wo * cout * cin * k * k
+        bound_ms, bound_by = bound(x.numel() * 2 + conv.weight.numel(), b * ho * wo * cout * 2,
+                                   2 * macs, PEAK_INT8_OPS)
+        rows.append({"in": cin, "out": cout, "kernel": k, "stride": stride, "side": side,
+                     "convs": count, "gmac": macs / 1e9, "int8_ms": int8_ms,
+                     "int_mm_ms": int_mm_ms, "cudnn_bf16_ms": cudnn_ms,
+                     "int8_bound_ms": bound_ms, "bound_by": bound_by,
+                     "int8_over_cudnn": int8_ms / cudnn_ms,
+                     "patch_bytes": patches.numel()})
+        del x, q, patches
+    del model
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_int8_embed(fp) -> dict:
+    """``build_embed_pipeline("ir_50", int8=True)`` at B=256: one launch of
+    kernel 1 a batch, the card's embeddings against the same quantized model
+    on CPU tensors, the cosine to the bf16 float pipeline, ms a batch against
+    it in turns, the per-shape table and the peak of allocated memory."""
+    import copy
+
+    from crfr_torch.bench.throughput import build_embed_pipeline
+    from crfr_torch.models.quant import QuantConv
+
+    t0 = time.perf_counter()
+    embed8 = build_embed_pipeline("ir_50", degrade_to=LOW, image_size=S, int8=True,
+                                  device="cuda", seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    embed16 = build_embed_pipeline("ir_50", degrade_to=LOW, image_size=S, device="cuda", seed=0)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randint(0, 256, (B, S, S, 3), generator=g, device="cuda", dtype=torch.uint8)
+
+    embed8(x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(fp)
+    emb8 = embed8(x)
+    torch.cuda.synchronize()
+    launches = _counts(fp)
+    peak = torch.cuda.max_memory_allocated()
+    if tuple(emb8.shape) != (B, 512) or emb8.dtype != torch.float32 \
+            or not torch.isfinite(emb8).all():
+        raise AssertionError(f"int8_embed: bad output {tuple(emb8.shape)} {emb8.dtype}")
+    want = {"fused_degrade_normalize": 1, LOWS_NAME: 0, "fused_resize_normalize": 0}
+    if launches != want:
+        raise AssertionError(f"int8_embed: one batch launched {launches}, want {want}")
+    q = embed8.model
+    n_quant = sum(isinstance(m, QuantConv) for m in q.modules())
+    if n_quant != 53:
+        raise AssertionError(f"int8_embed: {n_quant} QuantConvs, want IR-50's 53")
+
+    # the same quantized model on CPU tensors, on the card's own preprocessed input
+    xs = fp.fused_degrade_normalize(x[:INT8_CPU_ROWS], LOW, "pil", torch.bfloat16)
+    q_cpu = copy.deepcopy(q).cpu()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        card = q(xs).float()
+        sums_card = q.input_conv.int_sums(xs.permute(0, 3, 1, 2).to(torch.bfloat16))[0]
+        host = q_cpu(xs.cpu()).float()
+        sums_host = q_cpu.input_conv.int_sums(xs.cpu().permute(0, 3, 1, 2))[0]
+    cpu_s = time.perf_counter() - t0
+    cos_cpu = torch.nn.functional.cosine_similarity(card.cpu(), host, dim=-1)
+    if not (torch.equal(sums_card.cpu(), sums_host) and cos_cpu.min().item() > 0.999):
+        raise AssertionError(f"int8_embed: card vs CPU tensors: input-conv sums equal "
+                             f"{torch.equal(sums_card.cpu(), sums_host)}, cosine {cos_cpu}")
+    del q_cpu
+
+    emb16 = embed16(x)
+    cos_f = torch.nn.functional.cosine_similarity(emb8, emb16, dim=-1)
+
+    def per_batch(fn, n=10) -> float:
+        fn(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(x)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    turns = [("bf16", embed16), ("int8", embed8), ("int8", embed8), ("bf16", embed16)]
+    ms = {"bf16": [], "int8": []}
+    for name, fn in turns:
+        ms[name].append(per_batch(fn))
+    del embed16, emb16
+    torch.cuda.empty_cache()
+    table = _int8_shape_table(B)
+    total = {k: sum(r[k] * r["convs"] for r in table)
+             for k in ("int8_ms", "int_mm_ms", "cudnn_bf16_ms", "int8_bound_ms", "gmac")}
+    return {"phase": "int8_embed", "backbone": "ir_50", "batch": B, "degrade_to": LOW,
+            "mode": "pil", "dtype": "bfloat16 around int8 convs", "quant_convs": n_quant,
+            "calibration": "2 x 32 seeded noise images, bicubic down-up, normalized",
+            "build_s": build_s, "launches": launches, "peak_bytes": peak,
+            "card_vs_cpu": {"rows": INT8_CPU_ROWS, "cos_min": cos_cpu.min().item(),
+                            "input_conv_sums_equal": True, "cpu_s": cpu_s},
+            "int8_vs_bf16_cos_min": cos_f.min().item(),
+            "int8_vs_bf16_cos_mean": cos_f.mean().item(),
+            "ms_per_batch": {k: min(v) for k, v in ms.items()}, "ms_per_batch_turns": ms,
+            "imgs_per_s": {k: 1e3 * B / min(v) for k, v in ms.items()},
+            "convs_ms_sum": total, "conv_shapes": table}
+
+
+INT8_CLI_IMGS = 1024      # two full batches of 512: no zero padding in the calibration
+INT8_CLI_PADDED = 640     # a list whose second batch is padded with 384 zero images
+
+
+def phase_int8_cli(fp, bs) -> dict:
+    """``python -m crfr_torch train`` for 2 steps makes a checkpoint; then,
+    on a list of seeded noise PNGs written here, ``extract --degrade 16``
+    (float), ``extract --int8`` and ``extract --quantize-bank`` and ``match
+    --int8`` against the bank, in this process with the launch counters
+    read around each command. ``extract --int8`` on the first 640 images is
+    reported beside it: its calibration, as crfr's, takes the zero images
+    that pad the second batch."""
+    import contextlib
+
+    try:
+        from PIL import Image
+    except ImportError:
+        return {"phase": "int8_cli", "run": False, "why": "PIL not installed"}
+    from crfr_torch.cli import main as cli
+
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(root), *filter(None, [os.environ.get("PYTHONPATH")])])}
+    with tempfile.TemporaryDirectory() as tmp:
+        ov = ["data.num_classes=64", "train.batch_size=16", f"train.checkpoint_dir={tmp}/ck"]
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "crfr_torch", "train", "--preset",
+                            "casia_arcface", *ov, "--max-steps", "2"], cwd=root, env=env,
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise AssertionError(f"int8_cli: train exit {r.returncode}\n{r.stderr[-4000:]}")
+        train_s = time.perf_counter() - t0
+        rng = np.random.default_rng(21)
+        lines = []
+        for i in range(INT8_CLI_IMGS):
+            Image.fromarray(rng.integers(0, 256, (S, S, 3)).astype(np.uint8)).save(
+                f"{tmp}/{i}.png")
+            lines.append(f"{i}.png")
+        Path(f"{tmp}/list.txt").write_text("\n".join(lines) + "\n")
+        Path(f"{tmp}/padded.txt").write_text("\n".join(lines[:INT8_CLI_PADDED]) + "\n")
+        runs = {}
+
+        def run(name, *argv):
+            _zero_counts(fp)
+            bs.bank_tilemax.launches = 0
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli(list(argv))
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise AssertionError(f"int8_cli: {name} exit {rc}")
+            runs[name] = {"s": time.perf_counter() - t0,
+                          "launches": {**_counts(fp), "bank_tilemax": bs.bank_tilemax.launches},
+                          "out": json.loads(out.getvalue().strip().splitlines()[-1])}
+            return runs[name]["out"]
+
+        ex = ["extract", "--ckpt", f"{tmp}/ck", "--root", tmp, "--degrade", str(LOW)]
+        lst = ["--list", f"{tmp}/list.txt"]
+        run("extract", *ex, *lst, "--out", f"{tmp}/f.npy")
+        run("extract_int8", *ex, *lst, "--int8", "--out", f"{tmp}/q.npy")
+        bank = run("extract_quantize_bank", *ex, *lst, "--quantize-bank", "--out", f"{tmp}/bank")
+        res = run("match_int8", "match", "--gallery-npy", bank["out"], "--ckpt", f"{tmp}/ck",
+                  *lst, "--root", tmp, "--degrade", str(LOW), "--int8")
+        run("extract_int8_padded", *ex, "--list", f"{tmp}/padded.txt", "--int8",
+            "--out", f"{tmp}/p.npy")
+        ef, eq, ep = np.load(f"{tmp}/f.npy"), np.load(f"{tmp}/q.npy"), np.load(f"{tmp}/p.npy")
+
+    def cosine(a, b):
+        return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+
+    cos, cos_padded = cosine(ef, eq), cosine(ef[:INT8_CLI_PADDED], ep)
+    top1 = np.array([m["labels"][0] for m in res["matches"]])
+    if not (ef.shape == eq.shape == (INT8_CLI_IMGS, 512) and cos.min() > 0.98):
+        raise AssertionError(f"int8_cli: extract --int8 vs float cosine min {cos.min()}")
+    if ep.shape != (INT8_CLI_PADDED, 512) or not np.isfinite(ep).all():
+        raise AssertionError(f"int8_cli: extract --int8 on {INT8_CLI_PADDED} images gave "
+                             f"{ep.shape}")
+    if not np.array_equal(top1, np.arange(INT8_CLI_IMGS)) or res["gallery"] != INT8_CLI_IMGS:
+        raise AssertionError(f"int8_cli: match --int8 top-1 is another row for "
+                             f"{int((top1 != np.arange(INT8_CLI_IMGS)).sum())} probes")
+    if runs["match_int8"]["launches"]["bank_tilemax"] < 1:
+        raise AssertionError("int8_cli: match scanned the bank without bank_tilemax")
+    for name, r in runs.items():
+        n = INT8_CLI_PADDED if name == "extract_int8_padded" else INT8_CLI_IMGS
+        if r["launches"]["fused_degrade_normalize"] != -(-n // 512):
+            raise AssertionError(f"int8_cli: {name} launched {r['launches']}, want kernel 1 "
+                                 f"once for each of {-(-n // 512)} batches")
+    return {"phase": "int8_cli", "run": True, "images": INT8_CLI_IMGS, "degrade": LOW,
+            "train_s": train_s, "int8_vs_float_cos_min": float(cos.min()),
+            "int8_vs_float_cos_mean": float(cos.mean()), "top1_is_own_row": True,
+            "padded_calibration": {"images": INT8_CLI_PADDED, "zero_images": 2 * 512 - INT8_CLI_PADDED,
+                                   "int8_vs_float_cos_min": float(cos_padded.min()),
+                                   "int8_vs_float_cos_mean": float(cos_padded.mean())},
+            "runs": {k: {"s": v["s"], "launches": v["launches"],
+                         "out": v["out"] if k != "match_int8" else
+                         {"k": v["out"]["k"], "gallery": v["out"]["gallery"]}}
+                     for k, v in runs.items()},
+            "launches": runs["match_int8"]["launches"]}
+
+
 def phase_headline(fp) -> dict:
     """``run_headline`` at HeadlineCfg's widths, identities and batch (IR-18
     bf16, b64, 96/64/64 identities × 48 samples, probes 16 and 8 px), the
     steps and the evaluation mass cut (``reduced``) to fit the script's
-    time; the int8 row off. The ordering is reported, not asserted: the
-    steps are cut."""
-    from crfr_torch.experiments.headline import HeadlineCfg, ordering_holds, run_headline
+    time, with the int8 row on (the default): its table has crfr's schema,
+    each value in [0, 1], and each system's int8 verification accuracy at
+    least its float one − 0.05 (crfr's bound, tests/test_quant.py); the
+    int8 ``student_sr`` embedder's kernel-2 launches are counted around its
+    calls. The ordering is reported, not asserted: the steps are cut."""
+    from crfr_torch.experiments import headline as hl
 
-    with tempfile.TemporaryDirectory() as tmp:
-        h = HeadlineCfg(int8_eval=False, out_dir=f"{tmp}/headline", **HEADLINE_CUTS)
-        _zero_counts(fp)
-        t0 = time.perf_counter()
-        table = run_headline(h, device="cuda")
-        wall = time.perf_counter() - t0
-        launches = _counts(fp)
-        with open(os.path.join(h.out_dir, "headline.json")) as f:
-            saved = json.load(f)
-        has_teacher = os.path.isdir(os.path.join(h.out_dir, "teacher"))
-    full = HeadlineCfg()
+    int8_sr = {"calls": 0, "fused_resize_normalize": 0}
+    twins = hl._int8_probe_embedders
+
+    def counted(*a, **k):
+        out = twins(*a, **k)
+        f = out["student_sr"]
+
+        def g(x):
+            n0 = fp.fused_resize_normalize.launches
+            y = f(x)
+            int8_sr["calls"] += 1
+            int8_sr["fused_resize_normalize"] += fp.fused_resize_normalize.launches - n0
+            return y
+
+        out["student_sr"] = g
+        return out
+
+    hl._int8_probe_embedders = counted
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            h = hl.HeadlineCfg(out_dir=f"{tmp}/headline", **HEADLINE_CUTS)
+            _zero_counts(fp)
+            t0 = time.perf_counter()
+            table = hl.run_headline(h, device="cuda")
+            wall = time.perf_counter() - t0
+            launches = _counts(fp)
+            with open(os.path.join(h.out_dir, "headline.json")) as f:
+                saved = json.load(f)
+            has_teacher = os.path.isdir(os.path.join(h.out_dir, "teacher"))
+    finally:
+        hl._int8_probe_embedders = twins
+    full = hl.HeadlineCfg()
     systems = ("teacher_lr", "student_bic", "student_sr")
     metrics = ("verification_acc", "rank1", "cmc5", "tpir_at_fpir0.1")
     for p in h.probe_sizes:
@@ -1373,20 +1682,36 @@ def phase_headline(fp) -> dict:
                 v = res[sysname][metric]
                 if not 0.0 <= v <= 1.0:
                     raise AssertionError(f"headline: {p} px {sysname} {metric} = {v}")
+            row = res["int8"][sysname]
+            if set(row) != {"verification_acc", "rank1"} or \
+                    not all(0.0 <= v <= 1.0 for v in row.values()):
+                raise AssertionError(f"headline: {p} px int8 {sysname} {row}")
+            if row["verification_acc"] < res[sysname]["verification_acc"] - 0.05:
+                raise AssertionError(f"headline: {p} px int8 {sysname} verification "
+                                     f"{row['verification_acc']} below float "
+                                     f"{res[sysname]['verification_acc']} - 0.05")
+        if set(res["int8"]) != set(systems):
+            raise AssertionError(f"headline: {p} px int8 systems {sorted(res['int8'])}")
         if res["student_sr"]["cmc5"] < res["student_sr"]["rank1"]:
             raise AssertionError(f"headline: {p} px CMC-5 below rank-1")
         st = table["stages"][f"students{p}"]
         if not (np.isfinite(st["loss_sr"]) and np.isfinite(st["loss_bic"])
                 and np.isfinite(table["stages"][f"sr{p}"]["g_loss"])):
             raise AssertionError(f"headline: {p} px losses {st}")
+    if not (int8_sr["calls"] > 0 and int8_sr["fused_resize_normalize"] == int8_sr["calls"]):
+        raise AssertionError(f"headline: the int8 student_sr embedder launched kernel 2 "
+                             f"{int8_sr['fused_resize_normalize']} times in "
+                             f"{int8_sr['calls']} batches, want once a batch")
     if not (has_teacher and saved["results"] == json.loads(json.dumps(table["results"]))
             and saved["stages"]["n_train_imgs"] == h.ids_train * h.samples_per_id
             and np.isfinite(saved["stages"]["teacher"]["loss"])):
         raise AssertionError("headline: the artifact or the teacher's checkpoint is wrong")
     return {"phase": "headline", "results": {p: {s: r[s] for s in systems}
                                              for p, r in table["results"].items()},
-            "ordering_holds": {str(p): ordering_holds(table, p) for p in h.probe_sizes},
-            "ordering_holds_rank1": {str(p): ordering_holds(table, p, "rank1")
+            "int8": {p: r["int8"] for p, r in table["results"].items()},
+            "int8_student_sr_launches": int8_sr,
+            "ordering_holds": {str(p): hl.ordering_holds(table, p) for p in h.probe_sizes},
+            "ordering_holds_rank1": {str(p): hl.ordering_holds(table, p, "rank1")
                                      for p in h.probe_sizes},
             "stages": table["stages"], "eval_s": {p: r["eval_s"]
                                                   for p, r in table["results"].items()},
@@ -1435,6 +1760,10 @@ def main() -> int:
     distill = phase_distill(fp)
     emit({**distill, "card": smi})
     emit(phase_distill_cli())
+    int8_embed = phase_int8_embed(fp)
+    emit({**int8_embed, "card": smi})
+    int8_cli = phase_int8_cli(fp, bs)
+    emit(int8_cli)
     headline = phase_headline(fp)
     emit({**headline, "card": smi})
     # launches on each kernel's own main path: embed for the int form of the
@@ -1444,6 +1773,8 @@ def main() -> int:
              "serve": serve["launches"], "train": train["launches"],
              "sr_train": sr_train["launches"], "sr_extract": sr_extract["launches"],
              **{f"distill_{p}": v["launches"] for p, v in distill["paths"].items()},
+             "int8_embed": int8_embed["launches"],
+             **({"int8_cli_match": int8_cli["launches"]} if int8_cli["run"] else {}),
              "headline": headline["launches"]}
     own = {"bank_tilemax": gallery, LOWS_NAME: train, "fused_resize_normalize": sr_train}
     for k in kernels:

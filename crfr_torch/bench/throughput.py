@@ -12,6 +12,10 @@ The reference's bench pipeline rounds the degrade operator and the pixels
 to bf16 before its einsum; here the kernel computes the degrade in float32
 and casts only its output, as the reference's Pallas kernel does.
 
+``int8=True`` swaps the backbone for its int8 twin (``models.quant``): the
+same launch of the preprocessing kernel, then IR-50 with s8 convolutions
+(a patch gather and ``torch._int_mm``) and bf16 around them.
+
 Timing: ``steps`` calls queued back to back, one ``torch.cuda.synchronize``
 fence at the end; warmup excluded. Embedding reports the best of
 ``repeats`` windows; training reports the images of all its windows over
@@ -162,14 +166,28 @@ def build_embed_pipeline(backbone_name: str = "ir_50", degrade_to: int = 16,
                          dtype: torch.dtype = torch.bfloat16, int8: bool = False,
                          device: str | torch.device = "cuda", seed: int = 0):
     """→ fn(raw uint8/f32 NHWC batch) → (B, 512) f32 embeddings, with the
-    backbone's weights drawn from ``seed``. ``int8`` (the PTQ backbone) is
-    not ported yet."""
-    if int8:
-        raise NotImplementedError("int8 (PTQ backbone) is not ported yet")
+    backbone's weights drawn from ``seed``.
+
+    ``int8`` swaps the conv stack for the PTQ path (``models.quant``):
+    quantized from the float32 weights, calibrated on two batches of 32
+    seeded noise images (``default_rng(0)``) through the plain bicubic
+    down-up operator and normalization, as the reference calibrates (the
+    scales move accuracy, not speed), computing in ``dtype`` around its
+    s8 convolutions."""
     dev = resolve_device(device)
-    model = build_backbone(backbone_name, input_size=image_size, dtype=dtype,
+    model = build_backbone(backbone_name, input_size=image_size,
+                           dtype=torch.float32 if int8 else dtype,
                            generator=torch.Generator().manual_seed(seed))
     model = model.to(dev).eval()
+    if int8:
+        import numpy as np
+
+        from crfr_torch.models.quant import calibration_batch, quantize_backbone
+
+        rng = np.random.default_rng(0)
+        calib = [calibration_batch(rng.integers(0, 256, (32, image_size, image_size, 3)),
+                                   degrade_to, mode, dev) for _ in range(2)]
+        model = quantize_backbone(model, calib, compute_dtype=dtype)
 
     @torch.inference_mode()
     def embed(x: torch.Tensor) -> torch.Tensor:
@@ -177,6 +195,7 @@ def build_embed_pipeline(backbone_name: str = "ir_50", degrade_to: int = 16,
                                     out_dtype=dtype)
         return model(x)
 
+    embed.model = model
     return embed
 
 

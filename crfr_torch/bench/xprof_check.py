@@ -3,13 +3,19 @@ crfr/bench/xprof_check.py, with torch.profiler in place of jax.profiler, and
 ``trace_gallery`` for the int8 gallery scan.
 
     python -m crfr_torch.bench.xprof_check [--batch 256] [--steps 10]
+    python -m crfr_torch.bench.xprof_check --path embed_int8 [--batch 256] [--steps 10]
     python -m crfr_torch.bench.xprof_check --path gallery [--batch 256]
     python -m crfr_torch.bench.xprof_check --path train [--batch 512] [--steps 5]
     python -m crfr_torch.bench.xprof_check --path sr [--batch 256] [--steps 5]
     python -m crfr_torch.bench.xprof_check --path distill [--batch 512] [--steps 5]
 
 ``embed`` runs ``steps`` back-to-back calls of the bf16 embed pipeline
-(``bench.throughput.build_embed_pipeline``); ``gallery`` runs ``steps``
+(``bench.throughput.build_embed_pipeline``); ``embed_int8`` the same with
+the int8 backbone (``models.quant``), its conv kernels grouped by the
+profiler ranges that ``QuantConv`` opens while a profiler runs (the
+quantize, the patch gather, the ``torch._int_mm`` GEMM, the float
+epilogue), the rest by name (the preprocessing kernel, BN, PReLU, the
+head's GEMM, other elementwise work); ``gallery`` runs ``steps``
 256-probe top-10 scans of a 2^20 x 512 int8 bank on each path, the fused
 three-phase top-k (``ops.bank_scan.bank_topk_fused``, the CUDA default) and
 the scan (``eval.bank.streaming_topk_q``); ``train`` runs ``steps`` train
@@ -79,6 +85,19 @@ _TRAIN_GROUPS = (
 )
 
 
+# the int8 embed batch's groups outside QuantConv's ranges, and the groups
+# of the ranges (a kernel takes its range's group when its launch lies in one)
+_INT8_GROUPS = (
+    ("preprocess", ("resample_normalize",)),
+    ("batch_norm", ("batch_norm", "batchnorm", "bn_fw", "bn_")),
+    ("prelu", ("prelu",)),
+    ("gemm", ("gemm", "gemv", "cutlass")),
+    ("elementwise", ("elementwise", "vectorized", "reduce", "copy", "fill")),
+)
+_QUANT_SPANS = {"quant::quantize": "quantize", "quant::gather": "patch_gather",
+                "quant::int_mm": "int_mm", "quant::epilogue": "epilogue"}
+
+
 # an SR step's groups: the train step's, with the hourglass's pooling and
 # nearest upsampling (and their backward passes) apart
 _SR_GROUPS = (_TRAIN_GROUPS[0], ("pool", ("max_pool", "pooling")),
@@ -109,8 +128,31 @@ def _card() -> str:
                           check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def _profile(call, steps: int, dev: torch.device, top: int, groups=_GROUPS) -> dict:
-    """Untraced and traced windows of ``steps`` calls, warmup outside both."""
+def _span_groups(events: list[dict], kernels: list[dict], span_groups: dict) -> list:
+    """Each kernel's group from the profiler range (``record_function``,
+    named in ``span_groups``) around the runtime call that launched it, or
+    None outside every such range."""
+    import bisect
+
+    spans = sorted((e["ts"], e["ts"] + e["dur"], span_groups[e["name"]]) for e in events
+                   if e.get("cat") == "user_annotation" and e.get("name") in span_groups)
+    starts = [sp[0] for sp in spans]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    out = []
+    for k in kernels:
+        ts = launched.get(k.get("args", {}).get("correlation"))
+        i = bisect.bisect_right(starts, ts) - 1 if ts is not None else -1
+        out.append(spans[i][2] if i >= 0 and ts <= spans[i][1] else None)
+    return out
+
+
+def _profile(call, steps: int, dev: torch.device, top: int, groups=_GROUPS,
+             span_groups: dict | None = None) -> dict:
+    """Untraced and traced windows of ``steps`` calls, warmup outside both.
+    With ``span_groups`` a kernel launched inside one of those profiler
+    ranges takes the range's group."""
     def window() -> float:
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -135,11 +177,13 @@ def _profile(call, steps: int, dev: torch.device, top: int, groups=_GROUPS) -> d
 
     by_name: dict[str, list[float]] = {}
     by_group: dict[str, float] = {}
-    for e in kernels:
+    spanned = (_span_groups(events, kernels, span_groups) if span_groups
+               else [None] * len(kernels))
+    for e, sg in zip(kernels, spanned):
         acc = by_name.setdefault(e["name"], [0.0, 0])
         acc[0] += e["dur"]
         acc[1] += 1
-        g = _group(e["name"], groups)
+        g = sg or _group(e["name"], groups)
         by_group[g] = by_group.get(g, 0.0) + e["dur"]
     busy_ms = _busy_us([(e["ts"], e["ts"] + e["dur"]) for e in kernels]) / 1e3 / steps
     heaviest = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
@@ -165,17 +209,22 @@ def _cuda(device) -> torch.device:
 
 def trace_embed(batch: int = 256, steps: int = 10, backbone: str = "ir_50",
                 degrade_to: int = 16, image_size: int = 112, top: int = 12,
-                device: str | torch.device = "cuda", seed: int = 0) -> dict:
-    """One embed batch per call; keys per batch, as crfr's trace names them."""
+                device: str | torch.device = "cuda", seed: int = 0,
+                int8: bool = False) -> dict:
+    """One embed batch per call; keys per batch, as crfr's trace names them.
+    ``int8``: the int8 backbone, its conv work grouped by QuantConv's
+    profiler ranges."""
     dev = _cuda(device)
-    embed = build_embed_pipeline(backbone, degrade_to, image_size, device=dev, seed=seed)
+    embed = build_embed_pipeline(backbone, degrade_to, image_size, int8=int8, device=dev,
+                                 seed=seed)
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randint(0, 256, (batch, image_size, image_size, 3), generator=g,
                       device=dev, dtype=torch.uint8)
-    r = _profile(lambda: embed(x), steps, dev, top)
+    r = (_profile(lambda: embed(x), steps, dev, top, _INT8_GROUPS, _QUANT_SPANS) if int8
+         else _profile(lambda: embed(x), steps, dev, top))
     return {
         "backbone": backbone, "batch": batch, "steps": steps, "degrade_to": degrade_to,
-        "card": _card(),
+        "int8": int8, "card": _card(),
         "wall_ms_per_batch": r["wall_ms"],
         "traced_wall_ms_per_batch": r["traced_wall_ms"],
         "device_busy_ms_per_batch": r["device_busy_ms"],
@@ -321,15 +370,16 @@ def trace_distill(batch: int = 512, steps: int = 5, backbone: str = "ir_50",
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("embed", "gallery", "train", "sr", "distill"),
-                    default="embed")
+    ap.add_argument("--path", choices=("embed", "embed_int8", "gallery", "train", "sr",
+                                       "distill"), default="embed")
     ap.add_argument("--batch", type=int, default=0,
                     help="images or probes per call (256; 512 for train and distill)")
     ap.add_argument("--steps", type=int, default=0, help="calls per window (10; 5 for train)")
     ap.add_argument("--backbone", default="ir_50")
     args = ap.parse_args()
-    if args.path == "embed":
-        out = trace_embed(args.batch or 256, args.steps or 10, args.backbone)
+    if args.path in ("embed", "embed_int8"):
+        out = trace_embed(args.batch or 256, args.steps or 10, args.backbone,
+                          int8=args.path == "embed_int8")
     elif args.path == "gallery":
         out = trace_gallery(args.batch or 256, steps=args.steps or 10)
     elif args.path == "train":

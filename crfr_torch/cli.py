@@ -18,7 +18,17 @@
         [--tensorboard DIR] [--device cuda|cpu]
 
     python -m crfr_torch headline [--out DIR] [--probe-sizes 16,8] [--seeds N]
-        [--device cuda|cpu] int8_eval=0 [field=value ...]
+        [--device cuda|cpu] [field=value ...]
+
+    python -m crfr_torch extract --ckpt DIR --list FILE --out PATH [--root DIR]
+        [--degrade N] [--int8] [--quantize-bank] [--preset P] [key=value ...]
+        [--device cuda|cpu]
+
+    python -m crfr_torch match --gallery-npy BANK.npy|BANK.npz
+        (--probe-npy P.npy | --ckpt DIR --list FILE [--root DIR] [--int8]
+         [--degrade N] [--sr-ckpt DIR [--sr-scale 8] [--sr-bicubic-skip 1|0]])
+        [--gallery-labels-npy L.npy] [--k 5] [--approx] [--approx-recall R]
+        [--preset P] [key=value ...] [--device cuda|cpu]
 
 ``train`` writes JSONL metrics and checkpoints under ``train.checkpoint_dir``
 (``data_state.json`` beside them when it reads records), resumes from the
@@ -47,7 +57,23 @@ with the student.
 
 ``headline`` runs the paper's composed experiment
 (``experiments.headline``) and prints its results and the ordering per
-probe size; ``HeadlineCfg`` fields are key=value overrides.
+probe size; ``HeadlineCfg`` fields are key=value overrides. Its int8 row
+(``int8_eval``, on by default) re-runs verification and rank-1 with each
+system's backbone quantized (``models.quant``).
+
+``extract`` embeds the images of a list file (``path`` or ``path label``
+per line) with a ``train`` checkpoint, restored with its own config
+(key=value overrides win over it), with flip-TTA, and writes a float
+``.npy`` (labels beside it as ``<out>_labels.npy`` when the list has them)
+or, with ``--quantize-bank``, an int8 ``.npz`` bank (``eval.bank``).
+``--int8`` embeds through the int8 backbone, calibrated on up to two
+batches of the run's own images through the same degrade front end.
+``match`` scores probes (embeddings of ``--probe-npy``, or the images of
+``--list`` embedded as ``extract`` does, ``--int8`` and ``--sr-ckpt``
+included) against a float ``.npy`` gallery or an int8 ``.npz`` bank and
+prints the top-k labels and scores per probe; ``--approx`` and
+``--approx-recall`` are accepted and the selection stays exact. Both print
+``crfr``'s JSON lines.
 """
 
 from __future__ import annotations
@@ -324,6 +350,167 @@ def cmd_headline(args, overrides: list[str]) -> int:
     return 0
 
 
+def _embed_fn_from_ckpt(args, overrides: list[str]):
+    """A ``Trainer`` restored from ``--ckpt``, built from the checkpoint's
+    config with the CLI's key=value overrides winning over it (the preset's
+    config when the checkpoint has none)."""
+    from crfr_torch.configs import Config, get_config, parse_overrides
+    from crfr_torch.train.checkpoints import Checkpointer
+    from crfr_torch.train.loop import Trainer
+
+    ck = Checkpointer(args.ckpt, keep=1)
+    cfg_dict = ck.restore_config()
+    if cfg_dict is not None:
+        cfg = Config.from_dict(cfg_dict)
+        kv = parse_overrides(overrides)
+        if kv:
+            cfg = cfg.override(**kv)
+    else:
+        cfg = get_config(args.preset, overrides)
+    tr = Trainer(cfg, device=args.device)
+    tr.state = ck.restore(tr.state)
+    return tr, cfg
+
+
+def _backbone_apply(tr, cfg, args, sample_paths=(), degrade_to: int | None = None):
+    """The float backbone (default) or, with ``--int8``, its int8 twin
+    (``models.quant``), as normalized pixels → embeddings. The int8 one is
+    calibrated on up to two batches of the run's own images through the
+    front end the caller embeds with (the plain bicubic down-up operator to
+    ``degrade_to``, then normalization), or on one batch of seeded noise
+    when there are no images; it computes in the trainer's compute dtype.
+
+    As in ``crfr``, the calibration batches are ``embed_batches``' own, so
+    a last batch that is not full brings its zero padding with it
+    (ROADMAP.md §3 records what that does to the scales)."""
+    if not args.int8:
+        return lambda x: tr.backbone_apply(tr.model.backbone, x)
+    import numpy as np
+
+    from crfr_torch.models.quant import calibration_batch, quantize_backbone
+
+    size = cfg.model.input_size
+
+    def prep(raw):
+        return calibration_batch(raw, degrade_to, cfg.data.resize_mode, tr.device)
+
+    calib = []
+    if sample_paths:
+        from crfr_torch.data.pipeline import embed_batches
+
+        n = min(len(sample_paths), 2 * cfg.eval.batch_size)
+        for imgs, _ in embed_batches(list(sample_paths)[:n], cfg.eval.batch_size, size):
+            calib.append(prep(imgs))
+            if len(calib) >= 2:
+                break
+    else:
+        calib = [prep(np.random.default_rng(0).integers(0, 256, (32, size, size, 3)))]
+    q = quantize_backbone(tr.model.backbone, calib, compute_dtype=tr.compute_dtype)
+    return lambda x: q(x).float()
+
+
+def _sr_apply_if_requested(args, cfg):
+    """``--sr-ckpt DIR`` → the frozen hallucinator's plug, or None."""
+    if not args.sr_ckpt:
+        return None
+    from crfr_torch.train.sr_loop import load_sr_apply
+
+    return load_sr_apply(args.sr_ckpt, cfg, scale=args.sr_scale,
+                         bicubic_skip=bool(args.sr_bicubic_skip), device=args.device)
+
+
+def _load_gallery(path: str, labels_path: str = ""):
+    """A float ``.npy`` gallery or an int8 ``.npz`` bank (``extract
+    --quantize-bank``) → (gallery, labels): labels from ``labels_path``,
+    else the bank's own, else the row index."""
+    import numpy as np
+
+    if path.endswith(".npz"):
+        from crfr_torch.eval.bank import load_bank
+
+        bank = load_bank(path)
+        return bank, np.load(labels_path) if labels_path else bank.labels
+    g = np.load(path)
+    return g, np.load(labels_path) if labels_path else np.arange(len(g))
+
+
+def _approx_flag(args):
+    """--approx-recall R (0 < R < 1) → R; else --approx as a bool."""
+    return float(args.approx_recall) if args.approx_recall else bool(args.approx)
+
+
+def cmd_extract(args, overrides: list[str]) -> int:
+    import numpy as np
+
+    from crfr_torch.eval.extract import extract_embeddings, make_extract_fn
+
+    tr, cfg = _embed_fn_from_ckpt(args, overrides)
+    paths, labels = [], []
+    with open(args.list) as f:
+        for ln in f:
+            parts = ln.split()
+            if not parts:
+                continue
+            paths.append(os.path.join(args.root, parts[0]))
+            labels.append(int(parts[1]) if len(parts) > 1 else -1)
+    degrade = args.degrade or None
+    fn = make_extract_fn(_backbone_apply(tr, cfg, args, paths, degrade), degrade_to=degrade,
+                         resize_mode=cfg.data.resize_mode, flip_fusion=cfg.eval.flip_fusion,
+                         image_size=cfg.model.input_size, device=tr.device)
+    embs = extract_embeddings(paths, fn, cfg.eval.batch_size, cfg.model.input_size)
+    dim = int(embs.shape[1]) if len(embs) else 0
+    labelled = any(lab >= 0 for lab in labels)
+    if args.quantize_bank:
+        from crfr_torch.eval.bank import quantize_bank, save_bank
+
+        out = args.out if args.out.endswith(".npz") else args.out + ".npz"
+        save_bank(out, quantize_bank(embs, np.asarray(labels) if labelled else None))
+        print(json.dumps({"out": out, "count": len(paths), "dim": dim,
+                          "quantized_bank": True}), flush=True)
+        return 0
+    np.save(args.out, embs)
+    if labelled:
+        np.save(args.out.replace(".npy", "") + "_labels.npy", np.asarray(labels))
+    print(json.dumps({"out": args.out, "count": len(paths), "dim": dim}), flush=True)
+    return 0
+
+
+def cmd_match(args, overrides: list[str]) -> int:
+    import numpy as np
+
+    from crfr_torch.eval.identification import topk_matches
+
+    g, glab = _load_gallery(args.gallery_npy, args.gallery_labels_npy)
+    if args.probe_npy:
+        from crfr_torch.configs import get_config
+
+        p = np.load(args.probe_npy)
+        cfg = get_config(args.preset, overrides)
+    else:
+        if not (args.ckpt and args.list):
+            raise ValueError("match needs --probe-npy, or --ckpt and a --list of probe images")
+        from crfr_torch.eval.extract import extract_embeddings, make_extract_fn
+
+        tr, cfg = _embed_fn_from_ckpt(args, overrides)
+        with open(args.list) as f:
+            paths = [os.path.join(args.root, ln.split()[0]) for ln in f if ln.split()]
+        sr_apply = _sr_apply_if_requested(args, cfg)
+        degrade = args.degrade or cfg.data.eval_degrade_size
+        if sr_apply is not None and not degrade:
+            degrade = cfg.model.input_size // args.sr_scale
+        fn = make_extract_fn(_backbone_apply(tr, cfg, args, paths, degrade or None),
+                             degrade_to=degrade or None, sr_apply=sr_apply,
+                             resize_mode=cfg.data.resize_mode, flip_fusion=cfg.eval.flip_fusion,
+                             image_size=cfg.model.input_size, device=tr.device)
+        p = extract_embeddings(paths, fn, cfg.eval.batch_size, cfg.model.input_size)
+    scores, labels = topk_matches(p, g, glab, k=args.k, block=cfg.eval.gallery_block,
+                                  approx=_approx_flag(args), device=args.device)
+    out = [{"labels": labels[i].tolist(), "scores": [round(float(v), 4) for v in scores[i]]}
+           for i in range(len(labels))]
+    print(json.dumps({"matches": out, "k": args.k, "gallery": len(g)}), flush=True)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="crfr_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -411,6 +598,50 @@ def main(argv: list[str] | None = None) -> int:
                    help="comma-separated LR probe sizes (each divides the image size)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_headline)
+
+    p = sub.add_parser("extract", help="embed a list of images into .npy or an int8 .npz bank")
+    p.add_argument("--ckpt", required=True, help="checkpoint directory (of train)")
+    p.add_argument("--list", required=True, help="one 'path [label]' per line")
+    p.add_argument("--out", required=True)
+    p.add_argument("--root", default="")
+    p.add_argument("--degrade", type=int, default=0,
+                   help="bicubic down to this size and back up before embedding (0: none)")
+    p.add_argument("--int8", action="store_true",
+                   help="embed through the int8 backbone (models/quant.py), calibrated on "
+                        "this run's images")
+    p.add_argument("--quantize-bank", action="store_true",
+                   help="write an int8 .npz embedding bank (eval/bank.py) in place of a "
+                        "float .npy")
+    p.add_argument("--preset", default="casia_arcface")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_extract)
+
+    p = sub.add_parser("match", help="top-k identities of probes against a gallery")
+    p.add_argument("--gallery-npy", required=True,
+                   help="gallery: float .npy or int8 .npz (of extract [--quantize-bank])")
+    p.add_argument("--gallery-labels-npy", default="",
+                   help="gallery labels .npy (default: the bank's, else the row index)")
+    p.add_argument("--probe-npy", default="", help="probe embeddings .npy (no --ckpt)")
+    p.add_argument("--ckpt", default="", help="embed the probe images of --list instead")
+    p.add_argument("--list", default="", help="probe image list file")
+    p.add_argument("--root", default="")
+    p.add_argument("--degrade", type=int, default=0,
+                   help="probe degradation size (0: the config's eval_degrade_size)")
+    p.add_argument("--k", type=int, default=5)
+    p.add_argument("--int8", action="store_true",
+                   help="embed the probes through the int8 backbone")
+    p.add_argument("--approx", action="store_true",
+                   help="accepted; the selection stays exact (eval/identification.py)")
+    p.add_argument("--approx-recall", type=float, default=0.0,
+                   help="accepted, implies --approx; the selection stays exact")
+    p.add_argument("--sr-ckpt", default="",
+                   help="route probe images through this hallucinator (of train-sr)")
+    p.add_argument("--sr-scale", type=int, default=8)
+    p.add_argument("--sr-bicubic-skip", type=int, default=1,
+                   help="the G of --sr-ckpt was trained with the bicubic skip (1) or not (0)")
+    p.add_argument("--preset", default="casia_arcface")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_match)
 
     args, extra = ap.parse_known_args(argv)
     overrides, unknown = _split_overrides(extra)

@@ -1,4 +1,5 @@
-"""Host input pipeline for training (crfr/data/pipeline.py, without grain).
+"""Host input pipelines (crfr/data/pipeline.py, without grain): the train
+stream and ``embed_batches``, the eval side's image loader.
 
 The host reads records, flips and batches; degradation and normalisation
 run on the device inside the train step. The stream is the records of
@@ -21,8 +22,10 @@ many threads.
 
 from __future__ import annotations
 
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
+from typing import Iterator, Sequence
 
 import numpy as np
 
@@ -126,3 +129,42 @@ def train_batches(source, cfg: PipelineCfg, start_step: int = 0,
     else:
         it.skip(start_step)
     return it
+
+
+def embed_batches(paths: Sequence[str], batch_size: int, size: int = 112,
+                  pad_to_full: bool = True, num_threads: int = 16,
+                  prefetch: int = 2) -> Iterator[tuple[np.ndarray, int]]:
+    """Images from ``paths`` in batches of ``batch_size`` (the last one
+    zero-padded to full size unless ``pad_to_full`` is off), each yielded
+    as (uint8 (B, size, size, 3), n_valid). Decoding runs on
+    ``num_threads`` threads and ``prefetch`` whole batches are assembled
+    ahead of the consumer, so host decode overlaps the device's work."""
+    from crfr_torch.data.datasets import load_image
+
+    n = len(paths)
+    if n == 0:
+        return
+
+    def make_batch(pool, start):
+        chunk = paths[start:start + batch_size]
+        imgs = np.stack(list(pool.map(lambda p: load_image(p, size), chunk)))
+        n_valid = len(chunk)
+        if pad_to_full and n_valid < batch_size:
+            pad = np.zeros((batch_size - n_valid, size, size, 3), np.uint8)
+            imgs = np.concatenate([imgs, pad])
+        return imgs, n_valid
+
+    starts = iter(range(0, n, batch_size))
+    with ThreadPoolExecutor(num_threads) as pool, \
+            ThreadPoolExecutor(max(prefetch, 1)) as batcher:
+        pending: deque = deque()
+        for _ in range(max(prefetch, 1)):
+            s = next(starts, None)
+            if s is not None:
+                pending.append(batcher.submit(make_batch, pool, s))
+        while pending:
+            out = pending.popleft().result()
+            s = next(starts, None)
+            if s is not None:
+                pending.append(batcher.submit(make_batch, pool, s))
+            yield out

@@ -7,12 +7,16 @@ preprocessing kernel on CUDA (float32 out, as the reference's eval path
 computes it in float32). With a hallucinator (``sr_apply``) the probe is
 instead bicubic↓ to ``degrade_to`` and normalized in one launch of the
 resize form of the kernel, then hallucinated back up by G.
+
+``extract_embeddings`` runs such a function over image files, in batches
+from the threaded loader (``data.pipeline.embed_batches``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from crfr_torch.device import refuse_mesh, resolve_device
@@ -38,8 +42,7 @@ def make_extract_fn(backbone_apply: Callable, degrade_to: int | None = None,
     ``train.sr_loop.load_sr_apply``) routes the probe through the
     hallucinator: bicubic↓ to ``degrade_to`` → G ↑ → backbone, in place of
     the bicubic down→up degradation; it needs ``degrade_to``. A ``mesh`` of
-    more than one device is not ported yet, nor is ``extract_embeddings``
-    (it needs the image-path input pipeline).
+    more than one device is not ported yet.
     """
     if sr_apply is not None and degrade_to is None:
         raise ValueError("sr_apply needs degrade_to (the LR size)")
@@ -77,3 +80,31 @@ def make_extract_fn(backbone_apply: Callable, degrade_to: int | None = None,
 
     return f
 
+
+
+def _host(emb) -> np.ndarray:
+    return torch.as_tensor(emb).float().cpu().numpy()
+
+
+def extract_embeddings(paths: Sequence[str], extract_fn: Callable, batch_size: int = 256,
+                       image_size: int = 112) -> np.ndarray:
+    """``extract_fn`` over the images at ``paths`` → (N, D) float32.
+
+    The batch is ``min(batch_size, N rounded up to 8)``: a small set is not
+    padded to the full serving batch. Double-buffered: batch i+1 is
+    dispatched (and decoded on the loader's threads) before batch i's
+    result is copied to the host, so the device's work, the host's decode
+    and the copies overlap."""
+    from crfr_torch.data.pipeline import embed_batches
+
+    batch_size = min(batch_size, max(-(-len(paths) // 8) * 8, 8))
+    outs = []
+    pending = None                      # (device embeddings, n_valid)
+    for imgs, n_valid in embed_batches(paths, batch_size, image_size):
+        emb = extract_fn(imgs)          # queued on the device
+        if pending is not None:
+            outs.append(_host(pending[0])[:pending[1]])
+        pending = (emb, n_valid)
+    if pending is not None:
+        outs.append(_host(pending[0])[:pending[1]])
+    return np.concatenate(outs) if outs else np.zeros((0, 0), np.float32)

@@ -26,11 +26,13 @@ The paper's claim: student_sr > student_bic > teacher_lr (``ordering_holds``).
 Every stage checkpoints under ``out_dir``, and the table goes to
 ``out_dir/headline.json``:
 
-    python -m crfr_torch headline --out DIR int8_eval=0
+    python -m crfr_torch headline --out DIR
 
-The int8 row (``int8_eval``, on by default as in the reference) waits for
-the int8 backbone (ROADMAP.md item 8): ``run_headline`` refuses it before
-any work.
+The int8 row (``int8_eval``, on by default as in the reference) re-runs
+verification and rank-1 with each system's backbone quantized
+(``models.quant``, calibrated on the first two eval batches of the training
+faces through the plain down-up operator at the probe size); the residual
+branch and G stay float, and so does the teacher's HR gallery.
 """
 
 from __future__ import annotations
@@ -80,7 +82,8 @@ class HeadlineCfg:
     # paired bootstrap over pairs and probes: every system resampled with
     # the same indices, so the gap CIs are CIs of per-item differences
     bootstrap: int = 2000         # resamples; 0 turns it off
-    # the int8 row (not ported: run_headline raises while it is on)
+    # the int8 row: verification and rank-1 again with each system's
+    # backbone conv-quantized (models/quant.py)
     int8_eval: bool = True
     # plumbing
     out_dir: str = "/tmp/crfr_headline"
@@ -226,6 +229,39 @@ def _probe_embedders(h: HeadlineCfg, teacher_tr, students: dict, sr_apply, probe
     return hr, sys_lr
 
 
+def _int8_probe_embedders(h: HeadlineCfg, teacher_tr, students: dict, sr_apply, probe: int,
+                          calib_raw: np.ndarray, device=None) -> dict:
+    """The int8 twins of the three probe embedders: each system's backbone
+    quantized (``models.quant``), calibrated on ``calib_raw``'s first two
+    eval batches through the plain bicubic down-up operator at ``probe``
+    and normalization (absmax calibration does not tell G's upsampling from
+    bicubic); the residual branch and G stay float."""
+    from crfr_torch.eval.extract import make_extract_fn
+    from crfr_torch.models.quant import calibration_batch, quantize_backbone
+    from crfr_torch.train.distill_loop import frozen_copy
+
+    dev = teacher_tr.device if device is None else resolve_device(device)
+    n = min(len(calib_raw), 2 * h.eval_batch)
+    calib = [calibration_batch(calib_raw[i:i + h.eval_batch], probe, "pil", dev)
+             for i in range(0, n, h.eval_batch)]
+    kw = dict(degrade_to=probe, image_size=h.image_size, flip=False, device=dev)
+    t_q = quantize_backbone(teacher_tr.model.backbone, calib,
+                            compute_dtype=teacher_tr.compute_dtype)
+    out = {"teacher_lr": make_extract_fn(lambda x: t_q(x).float(), **kw)}
+    for name in ("student_bic", "student_sr"):
+        st = students[name]
+        q_bb = quantize_backbone(st.model.backbone, calib, compute_dtype=st.compute_dtype)
+        residual = frozen_copy(st.model.residual)
+
+        def apply(x, q_bb=q_bb, residual=residual):
+            s = q_bb(x).float()
+            return s + residual(s)
+
+        out[name] = make_extract_fn(apply, sr_apply=sr_apply if name == "student_sr" else None,
+                                    **kw)
+    return out
+
+
 def _pair_correct(e_lr: np.ndarray, e_hr: np.ndarray, issame: np.ndarray,
                   thresholds: np.ndarray) -> np.ndarray:
     """Per-pair correctness at the mean of the folds' best thresholds: the
@@ -269,7 +305,10 @@ def _bootstrap_ci(hits: dict[str, dict[str, np.ndarray]], n_boot: int,
 
 
 def _evaluate_probe(h: HeadlineCfg, renderer, hr_embed, sys_lr,
-                    eval_range, distract_range, rng, device=None) -> dict:
+                    eval_range, distract_range, rng, device=None,
+                    sys_lr_int8: dict | None = None, timings: dict | None = None) -> dict:
+    """One probe size's table (``crfr``'s schema); ``timings``, when given,
+    receives the int8 row's seconds as ``int8_eval_s``."""
     from crfr_torch.eval.identification import (_rank_from_topk, open_set_identification,
                                                 topk_matches)
     from crfr_torch.eval.verification import evaluate_verification
@@ -329,14 +368,22 @@ def _evaluate_probe(h: HeadlineCfg, renderer, hr_embed, sys_lr,
         }
     if h.bootstrap > 0:
         out["bootstrap"] = _bootstrap_ci(hits, h.bootstrap, h.seed + 99)
+    if sys_lr_int8:
+        t_int8 = time.time()
+        int8 = {}
+        for name, lr_embed in sys_lr_int8.items():
+            e_lr = _embed_arrays(lr_embed, p1, h.eval_batch)
+            ver = evaluate_verification(e_lr, e_hr, issame, n_folds=8, far_targets=(1e-2,),
+                                        device=dev)
+            pe = _embed_arrays(lr_embed, probe_imgs, h.eval_batch)
+            _, top_l = topk_matches(pe, g_emb, gal_ids, k=5, device=dev)
+            r1_hits, _ = _rank_from_topk(top_l, probe_ids, 5)
+            int8[name] = {"verification_acc": float(ver.accuracy_mean),
+                          "rank1": float(np.mean(r1_hits))}
+        out["int8"] = int8
+        if timings is not None:
+            timings["int8_eval_s"] = round(time.time() - t_int8, 1)
     return out
-
-
-def _refuse_int8(h: HeadlineCfg) -> None:
-    if h.int8_eval:
-        raise NotImplementedError("int8_eval: the headline's int8 row needs the int8 "
-                                  "backbone, which is not ported yet (ROADMAP.md item 8); "
-                                  "pass int8_eval=0")
 
 
 def run_headline(h: HeadlineCfg, device=None) -> dict:
@@ -344,7 +391,6 @@ def run_headline(h: HeadlineCfg, device=None) -> dict:
     CPU); returns the table, also written to ``out_dir/headline.json``."""
     from crfr_torch.data.render import RenderedIdentities
 
-    _refuse_int8(h)
     dev = resolve_device("cuda" if device is None else device)
     os.makedirs(h.out_dir, exist_ok=True)
     t0 = time.time()
@@ -390,15 +436,25 @@ def run_headline(h: HeadlineCfg, device=None) -> dict:
         stages[f"students{probe}"] = {"loss_sr": l_sr, "loss_bic": l_bic,
                                       "s": round(time.time() - t1, 1)}
 
-        # stage 6: cross-resolution eval with paired bootstrap CIs
+        # stage 6: cross-resolution eval with paired bootstrap CIs, and the
+        # int8 twins when int8_eval is on
         t1 = time.time()
         students = {"student_sr": st_sr, "student_bic": st_bic}
         hr_embed, sys_lr = _probe_embedders(h, teacher_tr, students, sr_apply, probe, dev)
+        int8_t, sys_int8 = {}, None
+        if h.int8_eval:
+            t2 = time.time()
+            sys_int8 = _int8_probe_embedders(h, teacher_tr, students, sr_apply, probe,
+                                             imgs[:2 * h.eval_batch], dev)
+            int8_t["quantize_s"] = round(time.time() - t2, 1)
         results[str(probe)] = _evaluate_probe(
             h, renderer, hr_embed, sys_lr, eval_range, distract_range,
-            np.random.default_rng(h.seed + 20 + probe), dev)
+            np.random.default_rng(h.seed + 20 + probe), dev, sys_lr_int8=sys_int8,
+            timings=int8_t)
         results[str(probe)]["eval_s"] = round(time.time() - t1, 1)
-        del students, st_sr, st_bic, sys_lr
+        if int8_t:
+            stages[f"int8_{probe}"] = int8_t
+        del students, st_sr, st_bic, sys_lr, sys_int8
         if dev.type == "cuda":
             torch.cuda.empty_cache()
 
@@ -414,7 +470,6 @@ def run_headline_seeds(h: HeadlineCfg, n_seeds: int, device=None) -> dict:
     re-trains and re-evaluates with ``seed + 1000·k`` under
     ``out_dir/seed{k}``. Aggregates mean ± std per (probe, system, metric)
     and the per-seed ordering verdicts into ``out_dir/headline_seeds.json``."""
-    _refuse_int8(h)
     t0 = time.time()
     tables = []
     for k in range(n_seeds):

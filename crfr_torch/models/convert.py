@@ -23,6 +23,12 @@ adds ``residual/fc1/kernel`` and ``residual/fc2/kernel`` (transposed),
 their biases, ``residual/prelu/alpha`` and the BN's scale, bias and
 statistics: a ``state_dict`` for ``crfr_torch.train.distill_loop.StudentModel``.
 
+``quant_state_from_jax`` does it for a backbone quantized by
+``crfr.models.quant.quantize_backbone``: each ``QuantConv``'s ``w8`` (kh, kw,
+I, O) int8 → (O, I, kh, kw), its ``sw``, ``sx`` and ``bias`` as float32, the
+rest through ``params_from_jax``: a ``state_dict`` for the port's
+``models.quant.quantize_backbone`` of the same backbone.
+
 The SR networks need no converter of their own: ``crfr_torch.models.sr``
 keeps ``crfr.models.sr``'s module names and leaves, so ``params_from_jax``
 carries a ``Hallucinator``'s state (``coarse/body/0/c1/conv/kernel``,
@@ -91,3 +97,30 @@ def student_state_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Te
     """A ``crfr`` ``StudentModel``'s parameters and BN statistics →
     ``distill_loop.StudentModel.state_dict()``."""
     return train_state_from_jax(flat, ("backbone", "residual"))
+
+
+_QUANT_LEAVES = ("w8", "sw", "sx", "bias")
+
+
+def quant_state_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """A quantized ``crfr`` backbone's parameters, BN statistics and
+    ``QuantConv`` tensors, keyed by their '/'-joined nnx paths → the
+    port's quantized backbone's ``state_dict``."""
+    quant = {p.rpartition("/")[0] for p in flat if p.endswith("/w8")}
+    sd: dict[str, torch.Tensor] = {}
+    rest = {}
+    for path, value in flat.items():
+        prefix, _, leaf = path.rpartition("/")
+        if prefix not in quant:
+            rest[path] = value
+            continue
+        if leaf not in _QUANT_LEAVES:
+            raise KeyError(f"{path}: no counterpart in crfr_torch")
+        arr = np.asarray(value)
+        if leaf == "w8":
+            arr = arr.astype(np.int8).transpose(3, 2, 0, 1)
+        else:
+            arr = arr.astype(np.float32)
+        sd[f"{prefix.replace('/', '.')}.{leaf}"] = torch.from_numpy(np.ascontiguousarray(arr))
+    sd.update(params_from_jax(rest))
+    return sd

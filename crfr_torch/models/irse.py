@@ -194,9 +194,16 @@ class IRBackbone(nn.Module):
         self.out_dropout = nn.Dropout(dropout)
         self.out_linear = nn.Linear(512 * feat * feat, embedding_dim)
         self.out_feat_bn = BatchNorm1d(embedding_dim, **_BN)
+        self.set_dtype(dtype)
+        self.to(memory_format=torch.channels_last)
+
+    def set_dtype(self, dtype: torch.dtype) -> "IRBackbone":
+        """Compute in ``dtype``: cast everything but the final BN1d, which
+        stays float32."""
+        self.dtype = dtype
         self.to(dtype)
         self.out_feat_bn.float()
-        self.to(memory_format=torch.channels_last)
+        return self
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)

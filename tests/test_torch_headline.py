@@ -5,10 +5,14 @@ landmarks), ``_embed_arrays``' tail padding, ``_pair_correct``,
 ``_bootstrap_ci``, ``_evaluate_probe`` (on the same rendered identities and
 deterministic embedders) and ``ordering_holds`` equal on the same inputs;
 ``_probe_embedders`` sends each system through its model (and only
-``student_sr`` through G); ``bench.headline_compare`` counts sign
-agreement; the int8 row refused before any work; every stage run end to end at 32 px on the
-CPU (and at crfr's micro scale, marked slow as crfr's own test is), with
-the table's schema, the stage checkpoints and the JSON artifact."""
+``student_sr`` through G); the int8 row: ``_evaluate_probe``'s ``int8``
+table equal to crfr's on deterministic embedders, and
+``_int8_probe_embedders`` sending each system through its quantized
+backbone, its residual and G; ``bench.headline_compare`` counts sign
+agreement; every stage run end to end at 32 px on the CPU with the int8
+row off and on (and at crfr's micro scale, marked slow as crfr's own test
+is), with the table's schema, the stage checkpoints and the JSON
+artifact."""
 
 import dataclasses
 import json
@@ -86,20 +90,6 @@ def test_ordering_holds_equals_crfr():
             assert port.ordering_holds(t, 16, metric) == ref.ordering_holds(t, 16, metric)
 
 
-def test_int8_row_is_refused_before_any_work(tmp_path, monkeypatch):
-    import crfr_torch.data.render as render
-
-    def no_render(*a, **k):
-        raise AssertionError("rendered before refusing int8_eval")
-
-    monkeypatch.setattr(render, "RenderedIdentities", no_render)
-    out = tmp_path / "h"
-    for run in (port.run_headline, lambda h, device: port.run_headline_seeds(h, 2, device)):
-        with pytest.raises(NotImplementedError, match="item 8.*int8_eval=0"):
-            run(port.HeadlineCfg(out_dir=str(out)), device="cpu")
-    assert not out.exists()
-
-
 def _pooled_projection(factor, proj):
     """A fixed numpy embedder: ``factor``× block means (a coarser probe for a
     larger factor), upsampled back by repetition, centred per image and
@@ -144,6 +134,45 @@ def test_evaluate_probe_equals_crfr():
         assert len({got[s][metric] for s in factors}) > 1, metric
     assert all(got[s]["tpir_at_fpir0.1"] > 0 for s in factors)
     assert set(got["bootstrap"]["gaps"]) == {"verification_acc", "rank1", "cmc5"}
+
+
+def test_evaluate_probe_int8_row_equals_crfr():
+    """``_evaluate_probe(sys_lr_int8=...)``: the ``int8`` table (verification
+    and rank-1 per system) equal to crfr's exactly, on the same rendered
+    identities and deterministic embedders as above, the int8 twins being
+    other projections of the same pooled pixels."""
+    from crfr.data.render import RenderedIdentities as RefRenderer
+    from crfr_torch.data.render import RenderedIdentities
+
+    kw = dict(ids_train=2, ids_eval=16, ids_distract=6, image_size=32, n_pairs=48,
+              probes_per_id=3, eval_batch=20, bootstrap=0, seed=3)
+    h, hr_cfg = port.HeadlineCfg(**kw), ref.HeadlineCfg(**kw)
+    n_ids = h.ids_train + h.ids_eval + h.ids_distract
+    ranges = ((h.ids_train, h.ids_train + h.ids_eval), (h.ids_train + h.ids_eval, n_ids))
+    rng = np.random.default_rng(0)
+    proj = rng.normal(size=(32 * 32 * 3, 128)).astype(np.float32)
+    proj8 = (proj + 0.3 * rng.normal(size=proj.shape)).astype(np.float32)
+    factors = {"teacher_lr": 8, "student_bic": 4, "student_sr": 2}
+    ref_sys = {s: _pooled_projection(f, proj) for s, f in factors.items()}
+    ref_int8 = {s: _pooled_projection(f, proj8) for s, f in factors.items()}
+    hr = _pooled_projection(1, proj)
+
+    def as_port(fns):
+        return {s: (lambda c, f=f: torch.from_numpy(f(c))) for s, f in fns.items()}
+
+    want = ref._evaluate_probe(hr_cfg, RefRenderer(n_ids, image_size=32, seed=h.seed),
+                               hr, ref_sys, *ranges, np.random.default_rng(7),
+                               sys_lr_int8=ref_int8)
+    got = port._evaluate_probe(h, RenderedIdentities(n_ids, image_size=32, seed=h.seed),
+                               lambda c: torch.from_numpy(hr(c)), as_port(ref_sys), *ranges,
+                               np.random.default_rng(7), device="cpu",
+                               sys_lr_int8=as_port(ref_int8))
+    assert got == want
+    assert set(got["int8"]) == set(factors)
+    for s in factors:
+        assert set(got["int8"][s]) == {"verification_acc", "rank1"}
+    assert got["int8"] != {s: {m: got[s][m] for m in ("verification_acc", "rank1")}
+                           for s in factors}
 
 
 def test_probe_embedders_route_each_system():
@@ -199,6 +228,66 @@ def test_probe_embedders_route_each_system():
     assert gap > 100 * 1e-4 * scale, gap
 
 
+def test_int8_probe_embedders_route_each_system():
+    """``_int8_probe_embedders``: each system through its own backbone
+    quantized on the first two eval batches of the calibration faces
+    (the plain down-up operator at the probe size), the students' residual
+    branches float on top, G on ``student_sr``'s batches alone; each within
+    cosine 0.99 of its float twin."""
+    from crfr_torch.models.quant import QuantConv, calibration_batch, quantize_backbone
+    from crfr_torch.models.sr import build_hallucinator
+    from crfr_torch.ops.fused_preprocess import fused_degrade_normalize, fused_resize_normalize
+    from crfr_torch.train.distill_loop import DistillTrainer, teacher_from_trainer
+    from crfr_torch.train.loop import Trainer
+    from crfr_torch.train.sr_loop import sr_apply_from_state
+
+    size, probe = 32, 8
+    h = port.HeadlineCfg(ids_train=4, image_size=size, compute_dtype="float32",
+                         probe_sizes=(probe,), eval_batch=4)
+    teacher = Trainer(port._cfg(h, num_classes=4, degrade=None, lr=0.1, steps=2),
+                      device="cpu")
+    scfg = port._cfg(h, num_classes=4, degrade=probe, lr=0.05, steps=2, distill=0.05)
+    students = {n: DistillTrainer(scfg, teacher_from_trainer(teacher), device="cpu")
+                for n in ("student_bic", "student_sr")}
+    gen = torch.Generator().manual_seed(11)
+    with torch.no_grad():
+        for prm in students["student_sr"].model.parameters():
+            prm.add_(0.05 * torch.randn(prm.shape, generator=gen))
+    plug, calls = sr_apply_from_state(build_hallucinator(size // probe, 16)), []
+
+    def g(lr):
+        calls.append(tuple(lr.shape))
+        return plug(lr)
+
+    calib_raw = np.random.default_rng(5).integers(0, 256, (10, size, size, 3)).astype(np.uint8)
+    sys8 = port._int8_probe_embedders(h, teacher, students, g, probe, calib_raw, device="cpu")
+    assert set(sys8) == {"teacher_lr", "student_bic", "student_sr"} and calls == []
+
+    calib = [calibration_batch(calib_raw[i:i + 4], probe, "pil") for i in (0, 4)]
+    x = np.random.default_rng(4).integers(0, 256, (6, size, size, 3)).astype(np.uint8)
+    xt = torch.from_numpy(x)
+    bic = fused_degrade_normalize(xt, probe, "pil", torch.float32)
+    sr_in = plug(fused_resize_normalize(xt, (probe, probe), "pil", out_dtype=torch.float32))
+    inputs = {"teacher_lr": bic, "student_bic": bic, "student_sr": sr_in}
+    models = {"teacher_lr": teacher.model.backbone,
+              **{n: st.model.backbone for n, st in students.items()}}
+    with torch.no_grad():
+        for name, model in models.items():
+            q = quantize_backbone(model, calib)
+            assert sum(isinstance(m, QuantConv) for m in q.modules()) == 21
+            want, float_want = q(inputs[name]), model.eval()(inputs[name])
+            if name != "teacher_lr":
+                res = students[name].model.residual.eval()
+                want, float_want = want + res(want), float_want + res(float_want)
+            got = sys8[name](x)
+            scale = want.abs().max().item()
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-4 * scale,
+                                       err_msg=name)
+            cos = torch.nn.functional.cosine_similarity(got, float_want, dim=-1)
+            assert cos.min() > 0.99, (name, cos)
+    assert calls == [(6, probe, probe, 3)]
+
+
 def _check_table(table, h, probes):
     for p in probes:
         res = table["results"][str(p)]
@@ -211,22 +300,33 @@ def _check_table(table, h, probes):
         st = table["stages"][f"students{p}"]
         assert np.isfinite(st["loss_sr"]) and np.isfinite(st["loss_bic"])
         assert np.isfinite(table["stages"][f"sr{p}"]["g_loss"])
+        if h.int8_eval:
+            assert set(res["int8"]) == {"teacher_lr", "student_bic", "student_sr"}
+            for system, row in res["int8"].items():
+                assert set(row) == {"verification_acc", "rank1"}
+                assert all(0.0 <= v <= 1.0 for v in row.values()), (system, row)
+            assert set(table["stages"][f"int8_{p}"]) == {"quantize_s", "int8_eval_s"}
+        else:
+            assert "int8" not in res and f"int8_{p}" not in table["stages"]
     assert os.path.isdir(os.path.join(h.out_dir, "teacher"))
     with open(os.path.join(h.out_dir, "headline.json")) as f:
         loaded = json.load(f)
     assert loaded["results"] == json.loads(json.dumps(table["results"]))
     assert loaded["stages"]["n_train_imgs"] == h.ids_train * h.samples_per_id
     assert np.isfinite(loaded["stages"]["teacher"]["loss"])
-    assert loaded["cfg"]["int8_eval"] is False
+    assert loaded["cfg"]["int8_eval"] is h.int8_eval
 
 
-def test_headline_end_to_end_at_32px(tmp_path):
-    """Every stage at 32 px (a 4× hallucinator for 8 px probes), float32."""
+@pytest.mark.parametrize("int8_eval", [False, True])
+def test_headline_end_to_end_at_32px(tmp_path, int8_eval):
+    """Every stage at 32 px (a 4× hallucinator for 8 px probes), float32,
+    with the int8 row off and on."""
     h = port.HeadlineCfg(
         ids_train=4, ids_eval=3, ids_distract=2, samples_per_id=4, image_size=32,
         compute_dtype="float32", batch_size=8, teacher_steps=2, sr_steps=1,
         distill_steps=2, probe_sizes=(8,), n_pairs=4, probes_per_id=2, eval_batch=8,
-        bootstrap=50, int8_eval=False, out_dir=str(tmp_path / "headline"), log_every=1000)
+        bootstrap=50, int8_eval=int8_eval, out_dir=str(tmp_path / "headline"),
+        log_every=1000)
     _check_table(port.run_headline(h, device="cpu"), h, (8,))
 
 

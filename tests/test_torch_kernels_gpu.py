@@ -4,7 +4,12 @@ SR probe's ↓ among them), ``bank_tilemax`` with the fused gallery path,
 and the one launch of the preprocessing kernel in a train step, an SR
 train step, a hallucinated extract batch, and a residual-KD step on each
 input path (a fixed low, a low per batch, a low per image, a frozen G, G
-trained jointly), the teacher's KD term on the trainer included.
+trained jointly), the teacher's KD term on the trainer included. The int8
+convolution (``models.quant``, ``torch._int_mm`` on the card): ``QuantConv``
+on the card equal to the same module on CPU tensors (the s32 sums bit for
+bit) at each of IR-50's 17 conv shapes, the operand padding at M ≤ 16,
+K = 27 and N off 8, the dtype it emits under autocast, and the one launch
+of the preprocessing kernel in an int8 embed batch.
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor crfr, so it also runs where only PyTorch is installed:
@@ -563,3 +568,69 @@ def test_bank_tilemax_refuses_what_it_does_not_take(cuda):
                                 torch.cuda.current_stream().cuda_stream)
     with pytest.raises(RuntimeError, match="CUDA error"):
         _build.check(lib, err, "bank_tilemax")
+
+
+# IR-50's 17 distinct convs at 112²: (in, out, kernel, stride, input side)
+IR50_CONVS = [(3, 64, 3, 1, 112),
+              (64, 64, 3, 1, 112), (64, 64, 3, 2, 112), (64, 64, 1, 2, 112), (64, 64, 3, 1, 56),
+              (64, 128, 3, 1, 56), (128, 128, 3, 2, 56), (64, 128, 1, 2, 56), (128, 128, 3, 1, 28),
+              (128, 256, 3, 1, 28), (256, 256, 3, 2, 28), (128, 256, 1, 2, 28),
+              (256, 256, 3, 1, 14),
+              (256, 512, 3, 1, 14), (512, 512, 3, 2, 14), (256, 512, 1, 2, 14), (512, 512, 3, 1, 7)]
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,side", IR50_CONVS)
+def test_quantconv_on_card_equals_cpu(cuda, cin, cout, k, stride, side):
+    import copy
+
+    from crfr_torch.models.quant import QuantConv
+
+    torch.manual_seed(side + cin + cout)
+    conv = torch.nn.Conv2d(cin, cout, k, stride, k // 2, bias=False)
+    x = torch.randn(2, cin, side, side).contiguous(memory_format=torch.channels_last)
+    q = QuantConv(conv, x.abs().amax().item())
+    qc = copy.deepcopy(q).to(cuda)
+    want, shape = q.int_sums(x)
+    got, got_shape = qc.int_sums(x.to(cuda))
+    assert got_shape == shape and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), want)
+    y = qc(x.to(cuda))
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(y.cpu(), q(x), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 27, 64), (1, 32, 60), (16, 8, 8), (17, 576, 64)])
+def test_int8_matmul_pads_for_int_mm(cuda, m, k, n):
+    from crfr_torch.models.quant import int8_matmul, int8_matmul_reference
+
+    g = torch.Generator().manual_seed(m * k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=g, dtype=torch.int8)
+    got = int8_matmul(a.to(cuda), b.to(cuda))
+    assert got.shape == (m, n) and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), int8_matmul_reference(a, b))
+
+
+def test_quantconv_emits_the_autocast_dtype(cuda):
+    from crfr_torch.models.quant import QuantConv
+
+    q = QuantConv(torch.nn.Conv2d(16, 32, 3, 1, 1), 2.0).to(cuda)
+    x = torch.randn(2, 16, 8, 8, device=cuda).contiguous(memory_format=torch.channels_last)
+    assert q(x).dtype == torch.float32
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        assert q(x).dtype == torch.bfloat16
+    assert q.to(torch.bfloat16)(x).dtype == torch.bfloat16 and q.sw.dtype == torch.float32
+
+
+def test_int8_embed_batch_launches_the_kernel_once(cuda):
+    from crfr_torch.bench.throughput import build_embed_pipeline
+
+    embed = build_embed_pipeline("ir_50", 16, 112, int8=True, device=cuda)
+    x = _pixels((4, 112, 112, 3), torch.uint8, cuda, seed=3)
+    before = (fp.fused_degrade_normalize.launches, fp.fused_degrade_normalize.lows_launches,
+              fp.fused_resize_normalize.launches)
+    emb = embed(x)
+    torch.cuda.synchronize()
+    assert (fp.fused_degrade_normalize.launches, fp.fused_degrade_normalize.lows_launches,
+            fp.fused_resize_normalize.launches) == (before[0] + 1, before[1], before[2])
+    assert emb.shape == (4, 512) and emb.dtype == torch.float32 and torch.isfinite(emb).all()
