@@ -2,7 +2,8 @@
 """Smoke run of crfr_torch on one CUDA card: kernels, embed, verify,
 gallery, serve, train, the train CLI, SR training, hallucinated
 extraction, the SR CLI, residual KD, the KD CLI, the int8 embed path, the
-int8 serving CLI, the headline experiment.
+int8 serving CLI, the headline experiment, detection, recognition from a
+photo, MobileFaceNet.
 
     python3 chip_smoke.py
 
@@ -21,7 +22,11 @@ Phases, each printing one JSON line:
    low 15 (pil and cv2), B=1, the SR trainer's ↓ (112² → 14², uint8 → f32,
    at the SR phase's batch and at the preset's 512; kernel 2's headline),
    the 160×140 → 112² resize and a 37×200 → 112×96
-   uint8 resize whose rows are not 16-byte multiples. The main case and the
+   uint8 resize whose rows are not 16-byte multiples, and the detector's
+   shapes (``photo_cases``: every pyramid level of a 640×480 and a
+   1280×720 uint8 photo at min_face 20, a 400 px box cropped to 24 and 48
+   px, float32 out; each labelled with the plan it took, shorter bands or
+   the two-pass plan). The main case and the
    160×140 resize are also timed at several band heights (``ms_by_rows``) and
    with a cold L2 (``cold_ms``); both entries carry the launch plan
    (``fused_preprocess.resample_info``); every band height must equal the
@@ -157,7 +162,30 @@ Phases, each printing one JSON line:
    embedder's kernel-2 launches (one a batch), finite losses, the stage
    checkpoint and the JSON artifact; the results, ``ordering_holds``
    (reported, not asserted: the steps are cut), the render and stage
-   seconds.
+   seconds;
+17. detect: ``train_mtcnn_synthetic`` on the card at crfr's slow test's
+   settings (min_face 40, thresholds 0.6, 150 steps of 6 scenes, seed 0;
+   losses finite, kernel 2 once a crop, counted from 0 just before), then
+   six fresh 160² scenes (``default_rng(10**6)``): hits ≥ 4 and mean
+   landmark error < 0.12 of the side (crfr's bounds); the detections of
+   the card (``strict_fp32``) equal to the same cascade's on CPU tensors
+   (count, boxes and landmarks within 1e-2 px, scores within 1e-4; a
+   difference is allowed only where a candidate lies within 1e-3 of a
+   threshold, and is then named in ``near_threshold``); composite photos
+   of 640×480 (12 scenes) and 1280×720 (32 scenes): kernel-2 launches of
+   one ``detect`` counted from 0 just before, hits, and ms by stage
+   (pyramid + PNet, the host's decode and NMS, the R-net stage, the O-net
+   stage);
+18. recognize: ``FaceRecognizer`` with the trained cascade, ir_18 float32:
+   cosine > 0.8 between the detected-landmark crop and the GT-landmark
+   crop (crfr's bound); IR-50 bf16 at full width on the 640×480 photo,
+   detect + align + embed timed, its launches counted; the batched warp
+   of 256 faces of the 1280×720 photo on the card equal to the CPU's
+   outside pixels within float32 error of a half-integer (a float64
+   replay marks them) and equal to the replay's rounding, timed;
+19. mobilefacenet: ``build_embed_pipeline("mobilefacenet")`` at B=256, 16
+   px, bf16: exactly one kernel-1 launch a batch, cosine > 0.99 to the
+   float32 plain path, ms a batch in turns with IR-50's.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the exit code is
@@ -453,6 +481,7 @@ def phase_kernels(fp) -> list[dict]:
                           f32_out, True),
               kernel_case(fp, "fused_resize_normalize", odd, (S, 96), "pil", bf16, False),
               kernel_case(fp, "fused_resize_normalize", odd, (S, 96), "pil", f32_out, False)]
+    resize += photo_cases(fp, g)
     plan_keys = ("registers", "spill_bytes", "smem_bytes", "ctas", "rows")
     return [
         {"name": "fused_degrade_normalize", "route": "cuda",
@@ -466,6 +495,37 @@ def phase_kernels(fp) -> list[dict]:
          "cases": resize, **_headline(resize[0]),
          **{k: resize[0]["plan"][k] for k in plan_keys}},
     ]
+
+
+PHOTOS = ((480, 640), (720, 1280))      # (H, W) of the detector's photo cases
+PHOTO_MIN_FACE = 20                     # MTCNN's default: the deepest pyramid
+BOX = 400                               # a large face box's side, cropped to 24 and 48 px
+
+
+def photo_cases(fp, g) -> list[dict]:
+    """Kernel 2 at the detector's shapes, uint8 → float32 as ``MTCNN.detect``
+    calls it: every pyramid level of a 640×480 and a 1280×720 photo at
+    min_face 20, and a 400 px box's R- and O-net crops; each timed and
+    labelled with its plan (``resample_info``: bands of how many rows, or
+    the two-pass plan)."""
+    from crfr_torch.models.mtcnn import MTCNN
+
+    levels = MTCNN(min_face=PHOTO_MIN_FACE, device="cpu")
+    cases = []
+    for h, w in PHOTOS:
+        x = torch.randint(0, 256, (1, h, w, 3), generator=g, device="cuda", dtype=torch.uint8)
+        for i, (_, hw) in enumerate(levels.pyramid_sizes(h, w)):
+            c = kernel_case(fp, "fused_resize_normalize", x, hw, "pil", torch.float32, True)
+            cases.append({"case": f"{w}x{h} pyramid level {i}", **c})
+    box = torch.randint(0, 256, (1, BOX, BOX, 3), generator=g, device="cuda", dtype=torch.uint8)
+    for side, net in ((24, "R-net"), (48, "O-net")):
+        c = kernel_case(fp, "fused_resize_normalize", box, (side, side), "pil", torch.float32,
+                        True)
+        cases.append({"case": f"{BOX} px box, {net} crop", **c})
+    for c in cases:
+        c["plan_taken"] = (c["plan"]["plan"] if c["plan"]["plan"] == "two_pass"
+                           else f"bands of {c['plan']['rows']} rows")
+    return cases
 
 
 def tilemax_case(bs, pq, q, sc, valid, timed: bool) -> dict:
@@ -1719,6 +1779,331 @@ def phase_headline(fp) -> dict:
             "reduced": {k: f"{getattr(full, k)} -> {v}" for k, v in HEADLINE_CUTS.items()}}
 
 
+DETECT_STEPS, DETECT_SCENES = 150, 6   # crfr's slow test (tests/test_mtcnn_synthetic.py:43-86)
+DETECT_THRESHOLDS, DETECT_MIN_FACE = (0.6, 0.6, 0.6), 40
+WARP_FACES = 256
+
+
+def _composite(rng, rows: int, cols: int, h: int, w: int):
+    """A uint8 (h, w) photo of rows × cols rendered 160² scenes (zeros where
+    they do not reach), with each scene's box and landmarks."""
+    from crfr_torch.train.mtcnn_train import render_scene
+
+    img = np.zeros((h, w, 3), np.float32)
+    boxes, lmks = [], []
+    for r in range(rows):
+        for c in range(cols):
+            sc = render_scene(rng, 160)
+            img[160 * r:160 * (r + 1), 160 * c:160 * (c + 1)] = sc.image
+            off = np.asarray([160 * c, 160 * r], np.float32)
+            boxes.append(sc.box + np.tile(off, 2))
+            lmks.append(sc.landmarks + off)
+    return np.clip(np.floor(img + 0.5), 0, 255).astype(np.uint8), np.stack(boxes), np.stack(lmks)
+
+
+def _hits(det, boxes) -> int:
+    from crfr_torch.train.mtcnn_train import iou
+
+    return sum(any(iou(d, b) >= 0.5 for d in det.boxes) for b in boxes)
+
+
+def _same_detections(a, b) -> bool:
+    return (a.boxes.shape == b.boxes.shape and a.landmarks.shape == b.landmarks.shape
+            and np.allclose(a.boxes, b.boxes, rtol=0, atol=1e-2)
+            and np.allclose(a.landmarks, b.landmarks, rtol=0, atol=1e-2)
+            and np.allclose(a.scores, b.scores, rtol=0, atol=1e-4))
+
+
+def _threshold_margin(mt, img) -> float:
+    """The smallest distance of any candidate's face probability to its
+    stage's threshold in ``mt``'s cascade on ``img``: what a difference of
+    float rounding can flip."""
+    from crfr_torch.models.mtcnn import crop_resize, photo_tensor
+
+    x = photo_tensor(img, mt.device)
+    t1, t2, t3 = mt.thresholds
+    with torch.inference_mode():
+        margin = min((float((p - t1).abs().min()) for _, p, _ in mt.pyramid(x)),
+                     default=np.inf)
+        b1 = mt.stage1(x)
+        if len(b1):
+            margin = min(margin, float((mt.rnet(crop_resize(x, b1, 24))[0] - t2).abs().min()))
+            b2 = mt.stage2(x, b1)
+            if len(b2):
+                margin = min(margin,
+                             float((mt.onet(crop_resize(x, b2, 48))[0] - t3).abs().min()))
+    return margin
+
+
+def _card_vs_cpu(mt_cpu, name: str, img, got, near: list) -> None:
+    """Card detections ``got`` against the same cascade on CPU tensors; a
+    difference is allowed only where a candidate lies within 1e-3 of a
+    threshold, and is then named in ``near``."""
+    want = mt_cpu.detect(img)
+    if _same_detections(got, want):
+        return
+    margin = _threshold_margin(mt_cpu, img)
+    if margin >= 1e-3:
+        raise AssertionError(f"detect: {name}: card {len(got.boxes)} detections != CPU "
+                             f"{len(want.boxes)}, no candidate near a threshold ({margin})")
+    near.append({"photo": name, "card": len(got.boxes), "cpu": len(want.boxes),
+                 "threshold_margin": margin})
+
+
+def _timed_detect(mt, img) -> dict:
+    """ms of one detect split by stage (host clock, each stage ending in a
+    synchronize): the pyramid's resizes and PNet, the host's decode and NMS
+    of stage 1, the R-net stage (crops, net, NMS), the O-net stage."""
+    from crfr_torch.models.mtcnn import photo_tensor
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    with torch.inference_mode():
+        x, upload = clock(lambda: photo_tensor(img, mt.device))
+        levels, pyr = clock(lambda: mt.pyramid(x))
+        b1, host = clock(lambda: mt.candidates(levels))
+        b2, s2 = clock(lambda: mt.stage2(x, b1)) if len(b1) else (b1, 0.0)
+        _, s3 = clock(lambda: mt.stage3(x, b2)) if len(b2) else (None, 0.0)
+        _, total = clock(lambda: mt.detect(img))
+    return {"upload_ms": upload, "pyramid_pnet_ms": pyr, "host_decode_nms_ms": host,
+            "rnet_stage_ms": s2, "onet_stage_ms": s3, "detect_ms": total,
+            "stage1_candidates": len(b1), "stage2_candidates": len(b2)}
+
+
+def phase_detect(fp) -> tuple[dict, dict]:
+    """The cascade trained on the card at crfr's slow test's settings, its
+    hits and landmark error on six fresh scenes (crfr's bounds), the same
+    detections from the cascade on CPU tensors, and composite photos of
+    640×480 and 1280×720: kernel-2 launches a photo, ms by stage, hits."""
+    from crfr_torch.device import strict_fp32
+    from crfr_torch.models.mtcnn import MTCNN
+    from crfr_torch.train.mtcnn_train import iou, render_scene, train_mtcnn_synthetic
+
+    mt = MTCNN(min_face=DETECT_MIN_FACE, thresholds=DETECT_THRESHOLDS, seed=0)
+    _zero_counts(fp)
+    t0 = time.perf_counter()
+    losses = train_mtcnn_synthetic(mt, steps=DETECT_STEPS, batch_scenes=DETECT_SCENES, seed=0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = _counts(fp)
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"detect: training losses {losses}")
+    want_train = DETECT_STEPS * DETECT_SCENES * 3 * 6      # three nets, 6 crops a scene each
+    if train_launches["fused_resize_normalize"] != want_train:
+        raise AssertionError(f"detect: training launched kernel 2 "
+                             f"{train_launches['fused_resize_normalize']} times, "
+                             f"want {want_train}")
+
+    test_rng = np.random.default_rng(10**6)
+    scenes = [render_scene(test_rng, 160) for _ in range(DETECT_SCENES)]
+    mt_cpu = MTCNN(min_face=DETECT_MIN_FACE, thresholds=DETECT_THRESHOLDS, device="cpu")
+    mt_cpu.load_state_dict({k: v.cpu() for k, v in mt.state_dict().items()})
+    hits, lmk_errs, near, dets = 0, [], [], []
+    for i, sc in enumerate(scenes):
+        det = mt.detect(sc.image)
+        dets.append(det)
+        with strict_fp32():
+            _card_vs_cpu(mt_cpu, f"scene {i}", sc.image, mt.detect(sc.image), near)
+        if len(det.boxes) == 0:
+            continue
+        best = int(np.argmax(det.scores))
+        if iou(det.boxes[best], sc.box) >= 0.5:
+            hits += 1
+            side = sc.box[2] - sc.box[0]
+            lmk_errs.append(float(np.abs(det.landmarks[best] - sc.landmarks).mean() / side))
+    if not (hits >= 4 and lmk_errs and np.mean(lmk_errs) < 0.12):
+        raise AssertionError(f"detect: {hits}/6 hits, landmark errors {lmk_errs} "
+                             f"(crfr's bounds: >= 4, mean < 0.12)")
+
+    photos = {}
+    rng = np.random.default_rng(7)
+    for name, (rows, cols, h, w) in {"640x480": (3, 4, 480, 640),
+                                     "1280x720": (4, 8, 720, 1280)}.items():
+        img, boxes, lmks = _composite(rng, rows, cols, h, w)
+        mt.detect(img)                                  # warm: band tables, cuDNN plans
+        _zero_counts(fp)
+        det = mt.detect(img)
+        torch.cuda.synchronize()
+        launches = _counts(fp)
+        with strict_fp32():
+            _card_vs_cpu(mt_cpu, name, img, mt.detect(img), near)
+        runs = [_timed_detect(mt, img) for _ in range(3)]
+        photos[name] = {"faces": len(boxes), "detections": len(det.boxes),
+                        "hits": _hits(det, boxes), "launches": launches,
+                        "levels": len(mt.pyramid_sizes(h, w)),
+                        "ms": min(runs, key=lambda r: r["detect_ms"]), "ms_runs": runs,
+                        "image": img, "landmarks": lmks, "boxes": boxes}
+    out = {"phase": "detect", "min_face": DETECT_MIN_FACE, "thresholds": DETECT_THRESHOLDS,
+           "train": {"steps": DETECT_STEPS, "batch_scenes": DETECT_SCENES, "seed": 0,
+                     "losses": losses, "seconds": train_s, "launches": train_launches},
+           "hits": hits, "of": len(scenes), "landmark_err": float(np.mean(lmk_errs)),
+           "landmark_errs": lmk_errs, "card_equals_cpu": not near, "near_threshold": near,
+           "photos": {k: {kk: vv for kk, vv in v.items()
+                          if kk not in ("image", "landmarks", "boxes")}
+                      for k, v in photos.items()},
+           "launches": photos["640x480"]["launches"],
+           "train_launches": train_launches}
+    return out, {"mtcnn": mt, "scenes": scenes, "dets": dets, "photos": photos}
+
+
+def _warp_replay(img: np.ndarray, lmks: np.ndarray, size: int):
+    """float64 solve and bilinear warp of each face (crfr's C++ in double):
+    the values (N, size, size, C) and the float32 rounding slack of each:
+    1e-3 plus the gradient times a coordinate error of 1e-4 px + 2e-7 of
+    the coordinate (a few float32 ulps of it)."""
+    from crfr_torch.ops.similarity import REFERENCE_LANDMARKS_112 as tmpl
+
+    src, dst = lmks.astype(np.float64), tmpl.astype(np.float64)
+    ms, md = src.mean(1), dst.mean(0)
+    ps, pd = src - ms[:, None], dst - md
+    den = (ps ** 2).sum((1, 2))
+    a = (ps[..., 0] * pd[:, 0] + ps[..., 1] * pd[:, 1]).sum(1) / den
+    b = (ps[..., 0] * pd[:, 1] - ps[..., 1] * pd[:, 0]).sum(1) / den
+    det = a * a + b * b                                  # inverse of [[a, -b], [b, a]]
+    ia, ib = a / det, b / det
+    tx = md[0] - (a * ms[:, 0] - b * ms[:, 1])
+    ty = md[1] - (b * ms[:, 0] + a * ms[:, 1])
+    yo, xo = np.mgrid[0:size, 0:size].astype(np.float64)
+    xs = ia[:, None, None] * (xo - tx[:, None, None]) + ib[:, None, None] * (yo - ty[:, None, None])
+    ys = -ib[:, None, None] * (xo - tx[:, None, None]) + ia[:, None, None] * (yo - ty[:, None, None])
+    h, w = img.shape[:2]
+    src_img = img.astype(np.float64)
+    x0, y0 = np.floor(xs).astype(int), np.floor(ys).astype(int)
+    fx, fy = (xs - x0)[..., None], (ys - y0)[..., None]
+
+    def at(yy, xx):
+        ok = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        return src_img[yy.clip(0, h - 1), xx.clip(0, w - 1)] * ok[..., None]
+
+    v00, v01, v10, v11 = at(y0, x0), at(y0, x0 + 1), at(y0 + 1, x0), at(y0 + 1, x0 + 1)
+    val = (v00 * (1 - fx) + v01 * fx) * (1 - fy) + (v10 * (1 - fx) + v11 * fx) * fy
+    grad = (np.abs((v01 - v00) * (1 - fy) + (v11 - v10) * fy)
+            + np.abs((v10 - v00) * (1 - fx) + (v11 - v01) * fx))
+    coord = np.maximum(np.abs(xs), np.abs(ys))[..., None]
+    return val, 1e-3 + (1e-4 + 2e-7 * coord) * grad
+
+
+def phase_recognize(fp, det_state: dict) -> dict:
+    """``FaceRecognizer`` with the trained cascade: ir_18 float32 against
+    crfr's bound (cosine > 0.8 between the detected-landmark and the
+    GT-landmark crop), IR-50 bf16 at full width timed per photo, and the
+    batched warp of 256 faces on the card against CPU tensors."""
+    from crfr_torch.configs import Config, ModelCfg
+    from crfr_torch.ops.warp import align_faces
+    from crfr_torch.pipeline import FaceRecognizer
+    from crfr_torch.train.mtcnn_train import iou
+
+    mt = det_state["mtcnn"]
+    pick = next(i for i, (sc, d) in enumerate(zip(det_state["scenes"], det_state["dets"]))
+                if len(d.boxes) and iou(d.boxes[int(np.argmax(d.scores))], sc.box) >= 0.5)
+    sc = det_state["scenes"][pick]
+    rec = FaceRecognizer.from_config(
+        Config(model=ModelCfg(backbone="ir_18", compute_dtype="float32", dropout=0.0)),
+        detector=mt)
+    crops_det = rec.detect_and_align(sc.image)
+    crops_gt = rec.detect_and_align(sc.image, sc.landmarks[None])
+    cos = float(rec.similarity(rec.embed(crops_det[:1]), rec.embed(crops_gt))[0, 0])
+    if not cos > 0.8:
+        raise AssertionError(f"recognize: detected-landmark crop cosine {cos} (crfr: > 0.8)")
+
+    photo = det_state["photos"]["640x480"]
+    rec50 = FaceRecognizer.from_config(
+        Config(model=ModelCfg(backbone="ir_50", compute_dtype="bfloat16", dropout=0.0)),
+        detector=mt)
+    rec50.embed(rec50.detect_and_align(photo["image"]))            # warm
+    _zero_counts(fp)
+    rec50.embed(rec50.detect_and_align(photo["image"]))
+    torch.cuda.synchronize()
+    launches = _counts(fp)
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        faces = rec50.detect_and_align(photo["image"])
+        t1 = time.perf_counter()
+        emb = rec50.embed(faces)
+        t2 = time.perf_counter()
+        runs.append({"detect_align_ms": 1e3 * (t1 - t0), "embed_ms": 1e3 * (t2 - t1),
+                     "photo_ms": 1e3 * (t2 - t0)})
+    if not (emb.shape == (len(faces), 512) and np.isfinite(emb).all() and len(faces)):
+        raise AssertionError(f"recognize: IR-50 embeddings {emb.shape}")
+
+    big = det_state["photos"]["1280x720"]
+    rng = np.random.default_rng(8)
+    lmks = (np.repeat(big["landmarks"], WARP_FACES // len(big["landmarks"]), 0)
+            + rng.normal(0, 1.0, (WARP_FACES, 5, 2))).astype(np.float32)
+    x = torch.from_numpy(big["image"]).cuda()
+    lm_dev = torch.from_numpy(lmks).cuda()
+    card = align_faces(x, lm_dev, 112).cpu().numpy()
+    cpu = align_faces(big["image"], lmks, 112, device="cpu").numpy()
+    val, slack = _warp_replay(big["image"], lmks, 112)
+    tied = np.abs(val - np.floor(val) - 0.5) < slack
+    exact = np.clip(np.floor(val + 0.5), 0, 255)
+    apart = card != cpu
+    if (apart & ~tied).any() or np.abs(card.astype(int) - cpu).max() > 1 \
+            or (card != exact)[~tied].any():
+        raise AssertionError(f"recognize: the card's warp differs from the CPU's at "
+                             f"{int((apart & ~tied).sum())} pixels off a near-tie")
+    warp_ms = cuda_ms(lambda: align_faces(x, lm_dev, 112))
+    return {"phase": "recognize", "ir18_cos_detected_vs_gt": cos, "scene": pick,
+            "ir50_bf16": {"photo": "640x480", "faces": len(faces), "runs": runs,
+                          "photo_ms": min(r["photo_ms"] for r in runs)},
+            "warp": {"faces": WARP_FACES, "photo": "1280x720", "ms": warp_ms,
+                     "pixels_apart": int(apart.sum()), "near_ties": int(tied.sum()),
+                     "card_equals_cpu_outside_ties": True},
+            "launches": launches}
+
+
+def phase_mobilefacenet(fp) -> dict:
+    """``build_embed_pipeline("mobilefacenet")`` at B=256, 16 px, bf16: one
+    kernel-1 launch a batch, cosine > 0.99 to the float32 plain path, ms a
+    batch in turns with IR-50's."""
+    from crfr_torch.bench.throughput import build_embed_pipeline
+    from crfr_torch.device import strict_fp32
+    from crfr_torch.models.irse import build_backbone
+
+    mfn = build_embed_pipeline("mobilefacenet", degrade_to=LOW, image_size=S, seed=0)
+    ir50 = build_embed_pipeline("ir_50", degrade_to=LOW, image_size=S, seed=0)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randint(0, 256, (B, S, S, 3), generator=g, device="cuda", dtype=torch.uint8)
+    _zero_counts(fp)
+    emb = mfn(x)
+    torch.cuda.synchronize()
+    launches = _counts(fp)
+    if launches["fused_degrade_normalize"] != 1 or sum(launches.values()) != 1:
+        raise AssertionError(f"mobilefacenet: one batch launched {launches}, want kernel 1 once")
+    model32 = build_backbone("mobilefacenet", generator=torch.Generator().manual_seed(0))
+    model32 = model32.cuda().eval()
+    with strict_fp32(), torch.inference_mode():
+        ref = model32(fp.fused_degrade_normalize_reference(x, LOW, "pil", torch.float32))
+    cos = torch.nn.functional.cosine_similarity(emb, ref, dim=-1)
+    if not (emb.shape == (B, 512) and torch.isfinite(emb).all() and cos.min().item() > 0.99):
+        raise AssertionError(f"mobilefacenet: {tuple(emb.shape)}, cosine to float32 "
+                             f"{cos.min().item()}")
+
+    def per_batch(fn, n=20) -> float:
+        fn(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(x)
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    turns = [("mobilefacenet", per_batch(mfn)), ("ir_50", per_batch(ir50)),
+             ("ir_50", per_batch(ir50)), ("mobilefacenet", per_batch(mfn))]
+    return {"phase": "mobilefacenet", "batch": B, "degrade_to": LOW, "dtype": "bfloat16",
+            "launches": launches, "cos_to_f32_min": cos.min().item(),
+            "cos_to_f32_mean": cos.mean().item(),
+            "ms_per_batch": min(t for n, t in turns if n == "mobilefacenet"),
+            "ir50_ms_per_batch": min(t for n, t in turns if n == "ir_50"), "turns": turns}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1766,6 +2151,14 @@ def main() -> int:
     emit(int8_cli)
     headline = phase_headline(fp)
     emit({**headline, "card": smi})
+    torch.cuda.empty_cache()
+    detect, det_state = phase_detect(fp)
+    emit({**detect, "card": smi})
+    recognize = phase_recognize(fp, det_state)
+    emit({**recognize, "card": smi})
+    del det_state
+    mobilefacenet = phase_mobilefacenet(fp)
+    emit({**mobilefacenet, "card": smi})
     # launches on each kernel's own main path: embed for the int form of the
     # preprocessing kernel, the gallery scan for bank_tilemax, a train step
     # for the form with a low per image, an SR train step for the resize
@@ -1775,7 +2168,9 @@ def main() -> int:
              **{f"distill_{p}": v["launches"] for p, v in distill["paths"].items()},
              "int8_embed": int8_embed["launches"],
              **({"int8_cli_match": int8_cli["launches"]} if int8_cli["run"] else {}),
-             "headline": headline["launches"]}
+             "headline": headline["launches"], "detect": detect["launches"],
+             "train_mtcnn": detect["train_launches"], "recognize": recognize["launches"],
+             "mobilefacenet": mobilefacenet["launches"]}
     own = {"bank_tilemax": gallery, LOWS_NAME: train, "fused_resize_normalize": sr_train}
     for k in kernels:
         k["launches"] = own.get(k["name"], embed)["launches"][k["name"]]

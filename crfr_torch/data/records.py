@@ -11,6 +11,10 @@ PIL is not installed. The ``.crfrpack`` container (blobs, each behind its
 u64 length, then a u64 offset index and a (count, index offset) footer) is
 read and written here. ArrayRecord files need the ``array_record`` package,
 which the port does not use: opening one raises, naming it.
+
+``pack_aligned_list`` packs a landmarked list into aligned records: each
+image decoded with PIL, aligned on the device (``ops.warp.align_faces``),
+written by ``write_pack`` (``crfr``'s default writer is ArrayRecord's).
 """
 
 from __future__ import annotations
@@ -18,9 +22,13 @@ from __future__ import annotations
 import io
 import os
 import struct
-from typing import Iterable
+from typing import Callable, Iterable, Iterator
 
 import numpy as np
+import torch
+
+from crfr_torch.device import resolve_device
+from crfr_torch.ops.warp import align_faces
 
 _HDR = struct.Struct("<IH")
 _DIMS = struct.Struct("<III")
@@ -151,3 +159,35 @@ def open_source(path: str):
         raise NotImplementedError(f"{path}: MXNet .rec reading (crfr/data/mxrec.py) is not "
                                   "ported yet; convert to .crfrpack")
     return PackSource(path)
+
+
+def pack_aligned_list(list_file: str, out_path: str, root: str = "", out_size: int = 112,
+                      writer: Callable = write_pack,
+                      device: str | torch.device = "cuda") -> int:
+    """Pack a landmarked list into aligned records, one line a face:
+
+        <path> <label> x1 y1 x2 y2 x3 y3 x4 y4 x5 y5
+
+    (other lines are skipped). Each image is decoded with PIL, aligned on
+    ``device`` by the 5-point solve and the warp, and rounded to uint8;
+    ``writer(out_path, (label, image) records)`` writes them and returns the
+    count."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("pack_aligned_list decodes images with PIL (the pillow package), "
+                          "which is not installed") from e
+    dev = resolve_device(device)
+
+    def gen() -> Iterator[tuple[int, np.ndarray]]:
+        with open(list_file) as f:
+            for ln in f:
+                parts = ln.split()
+                if len(parts) != 12:
+                    continue
+                lm = np.asarray(parts[2:], np.float32).reshape(1, 5, 2)
+                img = np.asarray(Image.open(os.path.join(root, parts[0])).convert("RGB"),
+                                 np.uint8)
+                yield int(parts[1]), align_faces(img, lm, out_size, device=dev)[0].cpu().numpy()
+
+    return writer(out_path, gen())

@@ -34,7 +34,16 @@ keeps ``crfr.models.sr``'s module names and leaves, so ``params_from_jax``
 carries a ``Hallucinator``'s state (``coarse/body/0/c1/conv/kernel``,
 ``coarse/ups/0/bias``, ``prior/hg/skip/0/...``, ``gen/out/kernel``) and a
 ``Discriminator``'s (``layers/0/conv/bias``, ``layers/1/bn/mean``,
-``fc/kernel``) as it stands.
+``fc/kernel``) as it stands, and so does it a ``MobileFaceNet``'s
+(``blocks/0/depthwise/conv/kernel``, a grouped (3, 3, 1, C) kernel that
+becomes (C, 1, 3, 3) by the same transpose; ``gdconv/kernel``,
+``out_linear/kernel``, ``out_bn/mean``).
+
+``mtcnn_state_from_jax`` does it for the three nets of a ``crfr`` ``MTCNN``
+(paths ``pnet/conv1/kernel``, ``rnet/fc/kernel``, ``onet/prelu5/alpha``):
+a ``state_dict`` for ``crfr_torch.models.mtcnn.MTCNN``. R/O-net's first
+linear layer needs no flatten permutation either: both stacks flatten
+H·W·C.
 """
 
 from __future__ import annotations
@@ -124,3 +133,17 @@ def quant_state_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tens
         sd[f"{prefix.replace('/', '.')}.{leaf}"] = torch.from_numpy(np.ascontiguousarray(arr))
     sd.update(params_from_jax(rest))
     return sd
+
+
+_MTCNN_NETS = ("pnet", "rnet", "onet")
+
+
+def mtcnn_state_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """A ``crfr`` ``MTCNN``'s parameters, keyed by their '/'-joined paths
+    under ``pnet``, ``rnet`` and ``onet`` → ``models.mtcnn.MTCNN.state_dict()``:
+    conv kernels (kh, kw, I, O) → (O, I, kh, kw), linear kernels transposed,
+    PReLU ``alpha`` → ``weight``."""
+    stray = sorted(k for k in flat if k.split("/")[0] not in _MTCNN_NETS)
+    if stray:
+        raise KeyError(f"{stray}: not under {_MTCNN_NETS}")
+    return params_from_jax(flat)

@@ -256,13 +256,19 @@ def build_backbone(name: str = "ir_50", *, embedding_dim: int = 512,
                    dropout: float = 0.4, input_size: int = 112,
                    dtype: torch.dtype = torch.float32,
                    generator: torch.Generator | None = None,
-                   remat: bool = False) -> IRBackbone:
-    """'ir_50' / 'ir_se_101' → IRBackbone with weights drawn from
-    ``generator`` (seed 0 when None), on the CPU, in train mode like any
-    fresh module: call ``.to(device).eval()`` for inference."""
+                   remat: bool = False) -> nn.Module:
+    """'ir_50' / 'ir_se_101' → IRBackbone, 'mobilefacenet' → MobileFaceNet
+    (which has no dropout or remat), with weights drawn from ``generator``
+    (seed 0 when None), on the CPU, in train mode like any fresh module:
+    call ``.to(device).eval()`` for inference."""
     parts = name.lower().split("_")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
     if parts[0] == "mobilefacenet":
-        raise NotImplementedError("mobilefacenet is not ported yet")
+        from crfr_torch.models.mobilefacenet import MobileFaceNet
+
+        return init_weights(MobileFaceNet(embedding_dim=embedding_dim, input_size=input_size,
+                                          dtype=dtype), generator)
     if parts[0] != "ir":
         raise ValueError(f"unknown backbone {name!r}")
     depth = parts[-1]
@@ -271,6 +277,4 @@ def build_backbone(name: str = "ir_50", *, embedding_dim: int = 512,
     model = IRBackbone(depth=depth, use_se="se" in parts,
                        embedding_dim=embedding_dim, dropout=dropout,
                        input_size=input_size, dtype=dtype, remat=remat)
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
     return init_weights(model, generator)

@@ -48,6 +48,10 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.crfr_degrade_lows_normalize.restype = i
     lib.crfr_degrade_lows_info.argtypes = [i, i, i, i, p, i, i, p, p]
     lib.crfr_degrade_lows_info.restype = i
+    lib.crfr_resize_two_pass.argtypes = [p, i, p, p, i, i, i, p, p]
+    lib.crfr_resize_two_pass.restype = i
+    lib.crfr_resize_two_pass_info.argtypes = [i, i, i, i, p, p]
+    lib.crfr_resize_two_pass_info.restype = i
     lib.crfr_bank_tilemax.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.crfr_bank_tilemax.restype = i
     lib.crfr_bank_tilemax_tile.argtypes = []

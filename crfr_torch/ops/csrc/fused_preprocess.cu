@@ -47,6 +47,17 @@
 // CTAs, at most two on an SM, each running its passes one after another
 // behind barriers (PERF.md; crfr_torch/bench/preprocess_phases.py times each).
 //
+// A resize whose band of one output row does not fit in shared memory (a
+// photo's last pyramid levels: 640x480 -> 18x14 reads 138 input rows of
+// 1,920 bytes for one output row, 295 KB with its buffers) takes the two-pass plan
+// (crfr_resize_two_pass): resize_rows_kernel runs (c) over every input row
+// of the batch straight from device memory into a float32 (B, H, OW, C)
+// scratch the caller allocates, and resize_cols_kernel runs (d) from that
+// scratch. Same device functions, same sums in the same order, so both
+// plans give the same bits where both fit. It needs no shared memory and
+// so takes any size; it reads the input once and writes and reads the
+// scratch once more.
+//
 // A low per image (degrade_lows_kernel, the train step's form; crfr's train
 // step computes it as einsum('boi,bijc,bpj->bopc', W[idx], x, W[idx]),
 // crfr/train/loop.py:263-278): the host builds the four band tables of
@@ -83,8 +94,8 @@ constexpr int kThreads = 384;
 
 struct Params {
   crfr_band op[4];  // degrade: down H, down W, up H, up W; resize: H, W
-  int C, H, W, OH, OW;
-  int rows;         // output rows per CTA
+  int B, C, H, W, OH, OW;
+  int rows;         // output rows per CTA (the two-pass plan's rows kernel: input rows)
   int bands;        // CTAs per image
   int rows_off;     // float offset of the [span][max(W, OW)*C] buffer
   int low_off;      // degrade: float offset of the [span][low*C] buffer
@@ -531,6 +542,29 @@ degrade_lows_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, const Par
   resample_band<Tin, Tout, true>(x, out, q);
 }
 
+// The two-pass plan of a resize. (c) over `p.rows` of the batch's B*H input
+// rows a CTA, from device memory into the f32 scratch tmp (B, H, OW, C).
+template <typename Tin>
+__global__ void __launch_bounds__(kThreads)
+resize_rows_kernel(const Tin* __restrict__ x, float* __restrict__ tmp, const Params p) {
+  const long long r0 = static_cast<long long>(blockIdx.x) * p.rows;
+  const int n = static_cast<int>(min(static_cast<long long>(p.rows),
+                                     static_cast<long long>(p.B) * p.H - r0));
+  horizontal(x + r0 * p.W * p.C, p.W * p.C, p.op[1], n, p.C, tmp + r0 * p.OW * p.C);
+}
+
+// (d) over a band of `p.rows` output rows of one image a CTA, from the scratch.
+template <typename Tout>
+__global__ void __launch_bounds__(kThreads)
+resize_cols_kernel(const float* __restrict__ tmp, Tout* __restrict__ out, const Params p) {
+  const int img = blockIdx.x / p.bands;
+  const int r0 = (blockIdx.x - img * p.bands) * p.rows;
+  const int len = p.OW * p.C;
+  vertical_store_by_width<Tout>(p.out_vec, tmp + static_cast<size_t>(img) * p.H * len, 0,
+                                p.op[0], r0, min(p.rows, p.OH - r0), len,
+                                out + (static_cast<size_t>(img) * p.OH + r0) * len);
+}
+
 // ---- host side -------------------------------------------------------------
 
 struct Plan {
@@ -559,6 +593,7 @@ bool make_plan(int B, int C, int in_bytes, const crfr_band* ops, int n_ops, int 
   Params& p = plan->p;
   p = Params{};
   for (int i = 0; i < n_ops; ++i) p.op[i] = ops[i];
+  p.B = B;
   p.C = C;
   p.H = ops[0].n_in;
   p.W = ops[1].n_in;
@@ -698,6 +733,57 @@ int report(const void* fn, bool ok, const Plan& plan, int refused_smem, int limi
   return 0;
 }
 
+// The two-pass plan: the rows kernel takes about kTwoPassPixels output
+// pixels of (c) a CTA, the cols kernel bands of kTwoPassRows output rows.
+constexpr int kTwoPassPixels = 2048;
+constexpr int kTwoPassRows = 8;
+
+struct TwoPass {
+  Params rows, cols;
+  int rows_ctas, cols_ctas;
+};
+
+// false when the bands are not a resize's two, or an image's input, scratch
+// or output holds more elements than a CTA's int offsets reach.
+bool make_two_pass(int B, int C, const crfr_band* ops, TwoPass* tp) {
+  if (B <= 0 || C <= 0 || ops == nullptr || !valid_band(ops[0]) || !valid_band(ops[1]))
+    return false;
+  Params p{};
+  p.op[0] = ops[0];
+  p.op[1] = ops[1];
+  p.B = B;
+  p.C = C;
+  p.H = ops[0].n_in;
+  p.W = ops[1].n_in;
+  p.OH = ops[0].n_out;
+  p.OW = ops[1].n_out;
+  const long long widest_row = std::max(p.W, p.OW) * static_cast<long long>(C);
+  if (widest_row * std::max(p.H, p.OH) > 0x7fffffffLL) return false;
+  p.rows = std::max(1, kTwoPassPixels / p.OW);
+  const long long rows_ctas = (static_cast<long long>(B) * p.H + p.rows - 1) / p.rows;
+  tp->rows = p;
+  p.rows = std::min(kTwoPassRows, p.OH);
+  p.bands = (p.OH + p.rows - 1) / p.rows;
+  const long long cols_ctas = static_cast<long long>(B) * p.bands;
+  if (rows_ctas > 0x7fffffffLL || cols_ctas > 0x7fffffffLL) return false;
+  tp->cols = p;
+  tp->rows_ctas = static_cast<int>(rows_ctas);
+  tp->cols_ctas = static_cast<int>(cols_ctas);
+  return true;
+}
+
+const void* rows_kernel_for(int in_dtype) {
+  if (in_dtype == 0) return reinterpret_cast<const void*>(&resize_rows_kernel<uint8_t>);
+  if (in_dtype == 1) return reinterpret_cast<const void*>(&resize_rows_kernel<float>);
+  return nullptr;
+}
+
+const void* cols_kernel_for(int out_dtype) {
+  if (out_dtype == 0) return reinterpret_cast<const void*>(&resize_cols_kernel<float>);
+  if (out_dtype == 1) return reinterpret_cast<const void*>(&resize_cols_kernel<__nv_bfloat16>);
+  return nullptr;
+}
+
 }  // namespace
 
 extern "C" {
@@ -784,6 +870,61 @@ int crfr_degrade_lows_info(int in_dtype, int out_dtype, int B, int C, const crfr
       : make_plan_lows(B, C, in_bytes, ops, n_lows, rows, spans, 0x7fffffff, &plan) ? plan.smem
       : -1;
   return report(fn, ok, plan, need, limit, info);
+}
+
+// A resize of x (B, H, W, C) into out (B, OH, OW, C) by the two-pass plan:
+// `ops` the resize's two band tables (H, W), `tmp` a float32 (B, H, OW, C)
+// scratch, 16-byte aligned. Otherwise as crfr_resample_normalize.
+int crfr_resize_two_pass(const void* x, int in_dtype, void* tmp, void* out, int out_dtype, int B,
+                         int C, const crfr_band* ops, void* stream) {
+  const void* rows_fn = rows_kernel_for(in_dtype);
+  const void* cols_fn = cols_kernel_for(out_dtype);
+  TwoPass tp;
+  if (rows_fn == nullptr || cols_fn == nullptr || x == nullptr || out == nullptr ||
+      tmp == nullptr || reinterpret_cast<uintptr_t>(tmp) % 16 != 0 ||
+      !make_two_pass(B, C, ops, &tp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static const int kOutBf16[] = {8, 4, 2}, kOutF32[] = {4};
+  const int len = tp.cols.OW * C;
+  tp.cols.out_vec = out_dtype == 1 ? widest(out, len, 2, kOutBf16, 3)
+                                   : widest(out, len, 4, kOutF32, 1);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  void* rows_args[] = {const_cast<void**>(&x), &tmp, &tp.rows};
+  cudaError_t err = cudaLaunchKernel(rows_fn, dim3(tp.rows_ctas), dim3(kThreads), rows_args, 0, s);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* cols_args[] = {&tmp, &out, &tp.cols};
+  err = cudaLaunchKernel(cols_fn, dim3(tp.cols_ctas), dim3(kThreads), cols_args, 0, s);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
+}
+
+// crfr_resample_info for the two-pass plan: info[0] and [1] the larger of
+// the two kernels' registers and spill bytes, [2] 0, [3] the CTAs of both,
+// [4] the output rows of a cols-kernel CTA, [5] and [6] as there.
+int crfr_resize_two_pass_info(int in_dtype, int out_dtype, int B, int C, const crfr_band* ops,
+                              int* info) {
+  const void* fns[] = {rows_kernel_for(in_dtype), cols_kernel_for(out_dtype)};
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  TwoPass tp;
+  if (fns[0] == nullptr || fns[1] == nullptr || !make_two_pass(B, C, ops, &tp))
+    return static_cast<int>(cudaErrorInvalidValue);
+  info[0] = info[1] = 0;
+  for (const void* fn : fns) {
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, fn);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    info[0] = std::max(info[0], attr.numRegs);
+    info[1] = std::max(info[1], static_cast<int>(attr.localSizeBytes));
+  }
+  info[2] = 0;
+  info[3] = tp.rows_ctas + tp.cols_ctas;
+  info[4] = tp.cols.rows;
+  info[5] = kThreads;
+  info[6] = limit;
+  return 0;
 }
 
 const char* crfr_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

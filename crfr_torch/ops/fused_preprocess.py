@@ -24,10 +24,19 @@ operator, ``einsum('boi,bijc,bpj->bopc', W[low], x, W[low])``. Those
 launches count in ``fused_degrade_normalize.lows_launches``; ``launches``
 counts the int form's alone.
 
-A degrade's band height is ``DEGRADE_ROWS`` (the whole image) where that
-plan fits the device's shared memory, else the tallest of ``_SHORTER_ROWS``
-that fits: a large low needs large buffers (low 112 at 112² in whole-image
-bands would need about 330 KB). The results do not depend on the height.
+A band height is ``DEGRADE_ROWS`` (the whole image) for a degrade and
+``RESIZE_ROWS`` for a resize where that plan fits the device's shared
+memory, else the tallest of ``_SHORTER_ROWS`` below it that fits: a large
+low needs large buffers (low 112 at 112² in whole-image bands would need
+about 330 KB), and a photo's pyramid level or a large face box read through
+a long downscale stages many wide input rows (640×480 → 18×14: 138 input
+rows of 1,920 bytes for one output row). A resize for which no band height
+fits takes the two-pass plan (``rows=TWO_PASS``): the horizontal pass over
+every input row into a float32 (B, H, OW, C) scratch on the device, then
+the vertical pass and the epilogue from it, with no shared memory, so at
+any size. The sums are the same in the same order in every plan, so the
+results do not depend on the height or the plan; ``resample_info`` says
+which plan a shape takes. A degrade that fits no band height raises.
 """
 
 from __future__ import annotations
@@ -47,12 +56,15 @@ _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # output rows per CTA: the fastest band heights measured (PERF.md §6)
 DEGRADE_ROWS = 112
 RESIZE_ROWS = 32
-_SHORTER_ROWS = (56, 28, 16, 8, 4, 2, 1)   # a degrade's band heights when DEGRADE_ROWS does not fit
+_SHORTER_ROWS = (56, 28, 16, 8, 4, 2, 1)   # the band heights when the default does not fit
+TWO_PASS = 0                               # ``rows`` of a resize's two-pass plan
+# entries of the per-shape caches: a detector's crops come in hundreds of sizes
+_SHAPES = 1024
 _INFO_KEYS = ("registers", "spill_bytes", "smem_bytes", "ctas", "rows", "threads",
               "smem_limit")
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=256)
 def _operators(key: tuple, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """(Wr, Wc) f32 on ``device`` for ('degrade', h, w, low, mode) or
     ('resize', h, w, oh, ow, mode)."""
@@ -74,7 +86,7 @@ def operator_key(h: int, w: int, arg, mode: str) -> tuple:
     return ("resize", h, w, oh, ow, mode)
 
 
-@functools.lru_cache(maxsize=256)
+@functools.lru_cache(maxsize=_SHAPES)
 def band_table(n_in: int, n_out: int, mode: str = "pil") -> tuple[np.ndarray, np.ndarray]:
     """``resize_matrix(n_in, n_out, mode)`` as a band table: ``start``
     (n_out,) int32, nondecreasing, and ``taps`` (n_out, T) f32 with
@@ -104,7 +116,7 @@ def _factors(key: tuple) -> tuple[tuple[int, int, str], ...]:
     return (h, oh, mode), (w, ow, mode)
 
 
-@functools.lru_cache(maxsize=256)
+@functools.lru_cache(maxsize=_SHAPES)
 def band_spans(key: tuple, rows: int) -> tuple[int, int]:
     """(span, in_span): the most rows one band of ``rows`` output rows reads
     through the vertical factor into the output (rows of the low-res image
@@ -151,7 +163,7 @@ class _Band(ctypes.Structure):
                 ("n_in", ctypes.c_int), ("n_out", ctypes.c_int), ("n_taps", ctypes.c_int)]
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=_SHAPES)
 def _device_table(n_in: int, n_out: int, mode: str,
                   device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """(start, taps transposed to (T, n_out)) on ``device``: threads on
@@ -161,7 +173,7 @@ def _device_table(n_in: int, n_out: int, mode: str,
             torch.tensor(np.ascontiguousarray(taps.T), device=device))
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=_SHAPES)
 def _bands(key: tuple, device: torch.device) -> tuple[ctypes.Array, tuple]:
     """The kernel's band tables on ``device`` as a ``crfr_band`` array, with
     the tensors that hold them (cached together, so they outlive the array)."""
@@ -193,7 +205,11 @@ def _lows_spans(key: tuple, rows: int) -> ctypes.Array:
 def _info(lib, key: tuple, b: int, c: int, in_code: int, out_code: int, rows: int,
           device: torch.device) -> tuple[int, dict]:
     info = (ctypes.c_int * len(_INFO_KEYS))()
-    if key[0] == "lows":
+    if rows == TWO_PASS:
+        arr, _ = _bands(key, device)
+        err = lib.crfr_resize_two_pass_info(in_code, out_code, b, c, ctypes.addressof(arr),
+                                            ctypes.addressof(info))
+    elif key[0] == "lows":
         arr, _, _ = _lows_bands(key, device)
         err = lib.crfr_degrade_lows_info(in_code, out_code, b, c, ctypes.addressof(arr),
                                          len(arr) // 4, rows,
@@ -206,30 +222,36 @@ def _info(lib, key: tuple, b: int, c: int, in_code: int, out_code: int, rows: in
     return err, dict(zip(_INFO_KEYS, info))
 
 
-@functools.lru_cache(maxsize=256)
+@functools.lru_cache(maxsize=_SHAPES)
 def _fit_rows(key: tuple, c: int, in_code: int, out_code: int, device: torch.device) -> int:
-    """The default band height: ``RESIZE_ROWS`` for a resize; for a degrade
-    ``DEGRADE_ROWS``, or the tallest of ``_SHORTER_ROWS`` whose plan fits
-    the device's shared memory (``DEGRADE_ROWS`` again when none does, so
-    that the launch raises with its size)."""
-    if key[0] == "resize":
-        return RESIZE_ROWS
-    first = DEGRADE_ROWS
+    """The default band height: ``RESIZE_ROWS`` for a resize, ``DEGRADE_ROWS``
+    for a degrade, or the tallest of ``_SHORTER_ROWS`` below it whose plan
+    fits the device's shared memory. When none does, ``TWO_PASS`` for a
+    resize, and for a degrade ``DEGRADE_ROWS`` again, so that the launch
+    raises with its size."""
+    first = RESIZE_ROWS if key[0] == "resize" else DEGRADE_ROWS
     lib = _build.load_library()
     with torch.cuda.device(device):
         for rows in (first, *(r for r in _SHORTER_ROWS if r < first)):
             if _info(lib, key, 1, c, in_code, out_code, rows, device)[0] == 0:
                 return rows
-    return first
+    return TWO_PASS if key[0] == "resize" else first
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=_SHAPES)
 def _check_plan(key: tuple, c: int, in_code: int, out_code: int, rows: int,
                 device: torch.device, what: str) -> None:
-    """Raise before the launch if the plan exceeds the kernel's shared memory."""
+    """Raise before the launch if the plan exceeds the kernel's shared memory,
+    or is the two-pass plan of a degrade or of an image beyond its int
+    offsets (2^31 elements)."""
+    if rows == TWO_PASS and key[0] != "resize":
+        raise ValueError(f"{what}: the two-pass plan is a resize's")
     lib = _build.load_library()
     with torch.cuda.device(device):
         err, info = _info(lib, key, 1, c, in_code, out_code, rows, device)
+    if rows == TWO_PASS and err != 0:
+        raise ValueError(f"{what}: a {key[1]}x{key[2]}x{c} -> {key[3]}x{key[4]} resize is "
+                         f"beyond the two-pass plan's int offsets")
     if err != 0 and not 0 <= info["smem_bytes"] <= info["smem_limit"]:
         size = f"{key[1]}x{key[1]}" if key[0] == "lows" else f"{key[1]}x{key[2]}"
         raise ValueError(f"{what}: {info['smem_bytes']} bytes of shared memory for "
@@ -243,22 +265,30 @@ def resample_info(shape: tuple[int, int, int, int], arg, mode: str = "pil",
                   out_dtype: torch.dtype = torch.bfloat16, rows: int | None = None,
                   lows: tuple[int, int] | None = None) -> dict:
     """What one kernel call on a (B, H, W, C) input launches on the current
-    CUDA device: registers and local-memory (spill) bytes per thread as
+    CUDA device: its ``plan`` ("bands", or "two_pass" for a resize that fits
+    no band height), registers and local-memory (spill) bytes per thread as
     compiled, dynamic shared memory, CTAs, output rows per CTA, threads per
     CTA, the device's shared-memory limit per CTA, and ``span`` and
-    ``in_span`` (``band_spans``). ``arg`` is ``low`` (a degrade), a tensor
-    of lows (a degrade with a low per image in the range ``lows``) or
-    ``out_hw`` (a resize). ``rows`` defaults to the height a call takes."""
+    ``in_span`` (``band_spans``; None for the two-pass plan, which also
+    reports its float32 ``scratch_bytes``). ``arg`` is ``low`` (a
+    degrade), a tensor of lows (a degrade with a low per image in the range
+    ``lows``) or ``out_hw`` (a resize). ``rows`` defaults to the height a
+    call takes; ``TWO_PASS`` asks for the two-pass plan. The two-pass
+    plan's registers and spills are the larger of its two kernels', its
+    CTAs those of both, its rows those of a vertical-pass CTA."""
     b, h, w, c = shape
     key = lows_key(h, lows, mode) if isinstance(arg, torch.Tensor) else operator_key(h, w, arg, mode)
     lib = _build.load_library()
     device = torch.device("cuda", torch.cuda.current_device())
     in_code, out_code = _IN_CODES[in_dtype], _OUT_CODES[out_dtype]
-    rows = rows or _fit_rows(key, c, in_code, out_code, device)
+    rows = _fit_rows(key, c, in_code, out_code, device) if rows is None else rows
     err, info = _info(lib, key, b, c, in_code, out_code, rows, device)
     _build.check(lib, err, "resample_info")
+    if rows == TWO_PASS:
+        return {**info, "plan": "two_pass", "span": None, "in_span": None,
+                "scratch_bytes": 4 * b * h * key[4] * c}
     span, in_span = band_spans(key, rows)
-    out = {**info, "span": span, "in_span": in_span}
+    out = {**info, "plan": "bands", "span": span, "in_span": in_span}
     if key[0] == "lows":
         out["lows"] = [key[2], key[3]]
     return out
@@ -279,7 +309,9 @@ def _reference(x: torch.Tensor, wr: torch.Tensor, wc: torch.Tensor,
 
 def _launch(x: torch.Tensor, key: tuple, oh: int, ow: int, out_dtype: torch.dtype,
             what: str, rows: int | None = None, low: torch.Tensor | None = None) -> torch.Tensor:
-    """One launch on ``x``; ``low`` the (B,) int32 lows of a lows key."""
+    """One launch on ``x``, in bands of ``rows`` output rows (the default
+    plan when None; ``TWO_PASS`` for a resize's two-pass plan); ``low`` the
+    (B,) int32 lows of a lows key."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: the kernel takes CUDA tensors, got {x.device}")
     if x.dtype not in _IN_CODES:
@@ -291,13 +323,19 @@ def _launch(x: torch.Tensor, key: tuple, oh: int, ow: int, out_dtype: torch.dtyp
         raise ValueError(f"{what}: input must be contiguous NHWC")
     b, h, w, c = x.shape
     in_code, out_code = _IN_CODES[x.dtype], _OUT_CODES[out_dtype]
-    rows = rows or _fit_rows(key, c, in_code, out_code, x.device)
+    rows = _fit_rows(key, c, in_code, out_code, x.device) if rows is None else rows
     _check_plan(key, c, in_code, out_code, rows, x.device, what)
     lib = _build.load_library()
     out = torch.empty((b, oh, ow, c), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if key[0] == "lows":
+        if rows == TWO_PASS:
+            arr, _ = _bands(key, x.device)
+            scratch = torch.empty((b, h, ow, c), dtype=torch.float32, device=x.device)
+            err = lib.crfr_resize_two_pass(x.data_ptr(), in_code, scratch.data_ptr(),
+                                           out.data_ptr(), out_code, b, c,
+                                           ctypes.addressof(arr), stream)
+        elif key[0] == "lows":
             arr, dev, _ = _lows_bands(key, x.device)
             err = lib.crfr_degrade_lows_normalize(
                 x.data_ptr(), in_code, out.data_ptr(), out_code, b, c, ctypes.addressof(arr),

@@ -106,8 +106,11 @@ def test_build_backbone_names(name, blocks, se):
 
 
 def test_build_backbone_refuses_unported_and_unknown():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_backbone("mobilefacenet")
+    # every backbone crfr builds is ported: mobilefacenet builds since the
+    # detection slice (tests/test_torch_mobilefacenet.py holds it to crfr's)
+    from crfr_torch.models.mobilefacenet import MobileFaceNet
+
+    assert isinstance(build_backbone("mobilefacenet", input_size=32), MobileFaceNet)
     with pytest.raises(ValueError, match="unknown backbone"):
         build_backbone("resnet_50")
 

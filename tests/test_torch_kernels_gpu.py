@@ -9,7 +9,12 @@ convolution (``models.quant``, ``torch._int_mm`` on the card): ``QuantConv``
 on the card equal to the same module on CPU tensors (the s32 sums bit for
 bit) at each of IR-50's 17 conv shapes, the operand padding at M ≤ 16,
 K = 27 and N off 8, the dtype it emits under autocast, and the one launch
-of the preprocessing kernel in an int8 embed batch.
+of the preprocessing kernel in an int8 embed batch. The resize at the
+detector's photo sizes (pyramid levels of 640×480 and 1280×720 photos in
+shorter bands and by the two-pass plan, a 400 px box's crops), the two-pass
+plan equal to the bands bit for bit where both fit, and the MTCNN cascade
+on the card equal to the same cascade on CPU tensors, with one resize
+launch a pyramid level and a crop.
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor crfr, so it also runs where only PyTorch is installed:
@@ -191,11 +196,15 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         x = _pixels((1, 16, 16, 6), torch.uint8, cuda)[..., ::2]
         fp.fused_degrade_normalize(x, 8)
-    # a band's 13 rows of 20000 x 3 f32 in shared memory: 3 MB, beyond any CTA's share
-    before = fp.fused_resize_normalize.launches
+    # a degrade of 2048² to 8 px reads ~1,000 input rows of 6 KB for one output
+    # row: 6 MB, beyond any CTA's share, and a degrade has no two-pass plan
+    before = fp.fused_degrade_normalize.launches
     with pytest.raises(ValueError, match="limit"):
-        fp.fused_resize_normalize(_pixels((1, 64, 64, 3), torch.uint8, cuda), (112, 20000))
-    assert fp.fused_resize_normalize.launches == before
+        fp.fused_degrade_normalize(_pixels((1, 2048, 2048, 3), torch.uint8, cuda), 8)
+    with pytest.raises(ValueError, match="two-pass plan is a resize's"):
+        fp._launch(_pixels((1, 64, 64, 3), torch.uint8, cuda), fp.operator_key(64, 64, 8, "pil"),
+                   64, 64, torch.float32, "t", rows=fp.TWO_PASS)
+    assert fp.fused_degrade_normalize.launches == before
 
 
 def test_preprocess_launch_plan(cuda):
@@ -211,9 +220,13 @@ def test_preprocess_launch_plan(cuda):
     resize = fp.resample_info((256, 160, 140, 3), (112, 112))
     assert 0 < resize["smem_bytes"] <= resize["smem_limit"]
     assert resize["span"] == resize["in_span"] > 0
-    assert resize["rows"] == fp.RESIZE_ROWS
+    assert resize["rows"] == fp.RESIZE_ROWS and resize["plan"] == "bands"
+    # a band's 13 rows of 20000 x 3 f32 would need 3 MB: the two-pass plan
+    wide = fp.resample_info((1, 64, 64, 3), (112, 20000))
+    assert wide["plan"] == "two_pass" and wide["smem_bytes"] == 0
+    assert wide["scratch_bytes"] == 4 * 64 * 20000 * 3 and wide["span"] is None
     with pytest.raises(RuntimeError, match="CUDA error"):
-        fp.resample_info((1, 64, 64, 3), (112, 20000))
+        fp.resample_info((1, 2048, 2048, 3), 8)
 
 
 def _lows(b, pattern, device, seed=0):
@@ -634,3 +647,83 @@ def test_int8_embed_batch_launches_the_kernel_once(cuda):
     assert (fp.fused_degrade_normalize.launches, fp.fused_degrade_normalize.lows_launches,
             fp.fused_resize_normalize.launches) == (before[0] + 1, before[1], before[2])
     assert emb.shape == (4, 512) and emb.dtype == torch.float32 and torch.isfinite(emb).all()
+
+
+# photo-sized resizes: pyramid levels of a 640×480 photo at min_face 20 in
+# bands of 16, 4 and 1 rows and by the two-pass plan, a level of a 1280×720
+# photo by the two-pass plan, and the 24 and 48 px crops of a 400 px box;
+# the plan is uint8 input's (float32 stages four times the bytes, so it may
+# take the two-pass plan where uint8 fits in bands)
+PHOTO_CASES = [((480, 640), (288, 384), "bands"), ((480, 640), (52, 69), "bands"),
+               ((480, 640), (19, 25), "bands"), ((480, 640), (14, 18), "two_pass"),
+               ((720, 1280), (55, 98), "two_pass"), ((400, 400), (24, 24), "bands"),
+               ((400, 400), (48, 48), "bands")]
+
+
+@pytest.mark.parametrize("out_dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("hw,out_hw,plan", PHOTO_CASES)
+def test_resize_kernel_at_photo_sizes(cuda, hw, out_hw, plan, in_dtype, out_dtype, atol):
+    x = _pixels((1, *hw, 3), in_dtype, cuda, seed=out_hw[0])
+    info = fp.resample_info(tuple(x.shape), out_hw, "pil", in_dtype, out_dtype)
+    assert info["plan"] == plan or (in_dtype == torch.float32 and info["plan"] == "two_pass")
+    if info["plan"] == "bands":
+        assert info["rows"] < fp.RESIZE_ROWS and info["smem_bytes"] <= info["smem_limit"]
+    before = fp.fused_resize_normalize.launches
+    got = fp.fused_resize_normalize(x, out_hw, "pil", out_dtype)
+    want = fp.fused_resize_normalize_reference(x, out_hw, "pil", out_dtype)
+    torch.cuda.synchronize()
+    assert fp.fused_resize_normalize.launches == before + 1
+    assert got.shape == (1, *out_hw, 3) and got.dtype == out_dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,out_hw", [((8, 160, 140, 3), (112, 112)),
+                                          ((5, 37, 200, 3), (112, 96)),
+                                          ((3, 64, 50, 3), (29, 31)),
+                                          ((2, 480, 640, 3), (288, 384)),
+                                          ((4, 112, 112, 1), (14, 14))])
+def test_two_pass_plan_equals_the_bands_bit_for_bit(cuda, shape, out_hw, out_dtype):
+    """Where both plans fit they run the same sums in the same order."""
+    for in_dtype in (torch.uint8, torch.float32):
+        x = _pixels(shape, in_dtype, cuda, seed=shape[1])
+        key = fp.operator_key(shape[1], shape[2], out_hw, "pil")
+        bands = fp._launch(x, key, *out_hw, out_dtype, "t")
+        two = fp._launch(x, key, *out_hw, out_dtype, "t", rows=fp.TWO_PASS)
+        torch.cuda.synchronize()
+        assert torch.equal(bands, two)
+
+
+def test_two_pass_plan_takes_any_width(cuda):
+    x = _pixels((1, 64, 64, 3), torch.uint8, cuda)
+    got = fp.fused_resize_normalize(x, (112, 20000), "pil", torch.float32)
+    want = fp.fused_resize_normalize_reference(x, (112, 20000), "pil", torch.float32)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_detect_on_the_card_equals_the_cpu(cuda):
+    """The cascade (random nets, thresholds 0.3/0/0) on a 160×120 photo:
+    one resize launch a pyramid level and a crop; the detections equal the
+    same cascade's on CPU tensors."""
+    import numpy as np
+
+    from crfr_torch.models.mtcnn import MTCNN
+
+    rng = np.random.default_rng(0)
+    img = rng.integers(0, 256, (160, 120, 3)).astype(np.uint8)
+    card = MTCNN(min_face=40, thresholds=(0.3, 0.0, 0.0))
+    cpu = MTCNN(min_face=40, thresholds=(0.3, 0.0, 0.0), device="cpu")
+    x = torch.from_numpy(img).cuda()
+    levels = len(card.pyramid(x))
+    n1 = len(card.stage1(x))
+    n2 = len(card.stage2(x, card.stage1(x)))
+    before = fp.fused_resize_normalize.launches
+    got = card.detect(img)
+    assert fp.fused_resize_normalize.launches - before == levels + n1 + n2
+    want = cpu.detect(img)
+    assert len(got.boxes) == len(want.boxes) > 0
+    np.testing.assert_allclose(got.boxes, want.boxes, rtol=0, atol=1e-2)
+    np.testing.assert_allclose(got.scores, want.scores, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got.landmarks, want.landmarks, rtol=0, atol=1e-2)
