@@ -3,7 +3,8 @@
 gallery, serve, train, the train CLI, SR training, hallucinated
 extraction, the SR CLI, residual KD, the KD CLI, the int8 embed path, the
 int8 serving CLI, the headline experiment, detection, recognition from a
-photo, MobileFaceNet.
+photo, MobileFaceNet, the serving artifact, the artifact daemon in this
+process and from the CLI, and the evaluation CLI.
 
     python3 chip_smoke.py
 
@@ -185,7 +186,45 @@ Phases, each printing one JSON line:
    replay marks them) and equal to the replay's rounding, timed;
 19. mobilefacenet: ``build_embed_pipeline("mobilefacenet")`` at B=256, 16
    px, bf16: exactly one kernel-1 launch a batch, cosine > 0.99 to the
-   float32 plain path, ms a batch in turns with IR-50's.
+   float32 plain path, ms a batch in turns with IR-50's;
+20. export: ``serve.export_embed`` of the casia_arcface trainer at full
+   width (IR-50, 112², bf16 compute, weights from the preset's seed), low
+   16 pil, B=256 uint8: export and load seconds and the file's bytes; the
+   loaded weights equal the trainer's on the card (device, strides,
+   values); one call launches kernel 1 exactly once (the custom op's CUDA
+   body); cosine ≥ 0.9999 a row to ``build_serving_fn`` on the same weights
+   and images (bit equality reported); ms a batch of both in turns; the
+   host's µs a call of kernel 1 through the public function, through the
+   op's dispatcher and as a bare launch, in turns. The
+   same for the int8 backbone (``export --int8``'s noise calibration; its
+   cosine to the float artifact reported) and, in float32 under
+   ``strict_fp32``, for G at init behind ↓14 (one kernel-2 launch, no
+   kernel 1; within 1e-2 of the bicubic artifact);
+21. serve_artifact: ``serve_http.serve_artifact`` on the bf16 artifact in
+   this process: ``/embed`` of 300 images (two coalesced static batches,
+   two kernel-1 launches) equal to the artifact on the same padded
+   batches within 1e-5; ``/match`` of 8 faces against a 2^16-row bank with
+   those faces planted equal to ``topk_matches_bank`` (one
+   ``bank_tilemax`` launch); with ``mutable=True``: ``/enroll``,
+   ``/match``, ``/remove``, ``/match``; the latency of ``/embed`` (1 and
+   256 images), ``/match`` (pixels and embeddings) and ``/enroll``;
+22. serve_cli: the trainer saved as a checkpoint, ``python -m crfr_torch
+   export`` in a child process (its meta equal to phase 20's), then
+   ``serve-http --artifact --gallery-npz --mutable-gallery --port 0`` in
+   another: its JSON line, ``/embed`` and ``/match`` equal to phase 21's
+   answers, ``/enroll`` of eight other faces found by ``/match``,
+   ``/remove``, then SIGINT and exit 0;
+23. eval_cli: rendered faces at 64 px written as each protocol's files and a
+   2-step float32 IR-18 ``train`` checkpoint: ``eval-verification``
+   (bicubic, ``--sr-ckpt`` with G at init), ``eval-scface``,
+   ``eval-openset`` (image lists; ``--probe-npy``), ``eval-bin`` (a
+   ``save_bin`` set), ``eval-ijbc`` (1:1 and 1:N; ``--probe-tpl-npy``) and
+   ``eval-verification`` on an ``import-torch`` of a seeded face.evoLVe
+   dict, each on the card under ``strict_fp32`` (launches counted around
+   it) and with ``--device cpu``: the same JSON, accuracies and ranks
+   exactly, other numbers within 1e-4; ``import-torch`` on both equal;
+   ``pack`` of a folder tree and of an MX ``.rec``, read back.
+   Without PIL it prints ``{"phase": "eval_cli", "run": false, ...}``.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the exit code is
@@ -2104,6 +2143,617 @@ def phase_mobilefacenet(fp) -> dict:
             "ir50_ms_per_batch": min(t for n, t in turns if n == "ir_50"), "turns": turns}
 
 
+# ---------------------------------------------------------------------------
+# The serving artifact, the artifact daemon and the evaluation CLI
+# ---------------------------------------------------------------------------
+
+SERVE_IMGS = 300                       # one /embed request: two coalesced static batches
+SERVE_BANK_M = 1 << 16
+
+
+def _one_call(fp, fn, x):
+    """``fn(x)`` with the preprocessing counters set to 0 just before and
+    read just after."""
+    _zero_counts(fp)
+    out = fn(x)
+    torch.cuda.synchronize()
+    return out, _counts(fp)
+
+
+def _turns(fns: dict, x, iters: int = 10) -> dict[str, list[float]]:
+    """ms a batch of each function (CUDA events over ``iters`` calls after
+    one warm call), in turns a, b, b, a."""
+    names = list(fns)
+    out = {n: [] for n in names}
+    for n in names + names[::-1]:
+        fns[n](x)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fns[n](x)
+        end.record()
+        torch.cuda.synchronize()
+        out[n].append(start.elapsed_time(end) / iters)
+    return out
+
+
+def _cos_min(a: torch.Tensor, b: torch.Tensor) -> float:
+    return torch.nn.functional.cosine_similarity(a.float(), b.float(), dim=-1).min().item()
+
+
+def _weights_match(fn, module: torch.nn.Module, prefix: str) -> int:
+    """Every parameter and buffer of ``module`` is in the loaded program,
+    on the same device, with the same strides and values; returns the
+    count."""
+    held = fn.program.state_dict
+    n = 0
+    for k, t in module.state_dict().items():
+        got = held.get(f"{prefix}.{k}")
+        if got is None:
+            if t.numel() == 1 and k.endswith("num_batches_tracked"):
+                continue                         # read by no eval-mode op
+            raise AssertionError(f"export: {prefix}.{k} is not in the loaded program")
+        if got.device != t.device or got.stride() != t.stride() or not torch.equal(got, t):
+            raise AssertionError(f"export: the loaded {prefix}.{k} differs ({got.device}, "
+                                 f"strides {got.stride()} vs {t.device}, {t.stride()})")
+        n += 1
+    return n
+
+
+def phase_export(fp, tmp: str) -> tuple[dict, dict]:
+    """``export_embed`` on the card at full width (casia_arcface: IR-50,
+    112², bf16 compute, weights from the preset's seed) with low 16 pil, B
+    = 256 uint8: exported, saved, loaded back; the loaded weights are the
+    trainer's on the card; one call launches kernel 1 exactly once; it
+    equals ``build_serving_fn`` on the same weights and images at cosine ≥
+    0.9999 a row; ms a batch of both in turns. The same for the int8
+    backbone (``export --int8``'s calibration) and, in float32, for G at
+    init behind ↓14 (one kernel-2 launch, the bicubic artifact within 1e-2,
+    under ``strict_fp32``)."""
+    from crfr_torch.cli import _quantized_backbone
+    from crfr_torch.configs import get_config
+    from crfr_torch.device import strict_fp32
+    from crfr_torch.models.sr import build_hallucinator
+    from crfr_torch.serve import build_serving_fn, export_embed, load_embed
+    from crfr_torch.train.distill_loop import frozen_copy
+    from crfr_torch.train.loop import Trainer
+    from crfr_torch.train.sr_loop import sr_apply_from_state
+
+    cfg = get_config("casia_arcface")
+    tr = Trainer(cfg, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(30)
+    x = torch.randint(0, 256, (B, S, S, 3), generator=g, device="cuda", dtype=torch.uint8)
+    one_launch = {"fused_degrade_normalize": 1, LOWS_NAME: 0, "fused_resize_normalize": 0}
+
+    def export(name, **kw):
+        path = f"{tmp}/{name}.crfrt"
+        t0 = time.perf_counter()
+        meta = export_embed(tr, path, batch=B, **kw)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fn = load_embed(path)
+        load_s = time.perf_counter() - t0
+        return fn, {"path": path, "export_s": export_s, "load_s": load_s,
+                    "bytes": os.path.getsize(path), "meta": meta}
+
+    def compare(name, fn, live, want_launches, info, min_cos=0.9999, iters=10):
+        out, launches = _one_call(fp, fn, x)
+        want = live(x)
+        if tuple(out.shape) != (B, 512) or out.dtype != torch.float32 or \
+                not torch.isfinite(out).all():
+            raise AssertionError(f"export: {name} gave {tuple(out.shape)} {out.dtype}")
+        if launches != want_launches:
+            raise AssertionError(f"export: one call of the {name} artifact launched {launches}, "
+                                 f"want {want_launches}")
+        cos = _cos_min(out, want)
+        if cos < min_cos:
+            raise AssertionError(f"export: {name} artifact vs build_serving_fn cosine {cos}")
+        ms = _turns({"build_serving_fn": live, "artifact": fn}, x, iters)
+        info.update(launches=launches, cos_to_live_min=cos,
+                    equal_to_live=bool(torch.equal(out, want)),
+                    max_abs_to_live=(out - want).abs().max().item(),
+                    ms_per_batch={k: min(v) for k, v in ms.items()}, ms_turns=ms)
+        return out
+
+    art, bf16 = export("bf16", degrade_to=LOW)
+    bf16["weights_checked"] = _weights_match(art, tr.model.backbone, "backbone")
+    live = build_serving_fn(lambda y: tr.backbone_apply(tr.model.backbone, y), degrade_to=LOW,
+                            image_size=S, device="cuda")
+    e_float = compare("bf16", art, live, one_launch, bf16)
+    if not tr.model.backbone.training:
+        raise AssertionError("export: the trainer's backbone was left in eval mode")
+    # the host's time a call of kernel 1: the public function (eager: the
+    # op's CUDA body), the op through the dispatcher (as a loaded program
+    # calls it) and the bare launch, in turns
+    key = fp.operator_key(S, S, LOW, "pil")
+    op = torch.ops.crfr_torch.fused_degrade_normalize
+    paths = {"function": lambda: fp.fused_degrade_normalize(x, LOW, "pil", torch.bfloat16),
+             "custom_op": lambda: op(x, LOW, "pil", torch.bfloat16),
+             "launch": lambda: fp._launch(x, key, S, S, torch.bfloat16, "t")}
+    host = {n: [] for n in paths}
+    for n in (*paths, *reversed(paths)):
+        host[n].append(host_us(paths[n]))
+    bf16["kernel1_host_us"] = {n: min(v) for n, v in host.items()}
+    bf16["kernel1_host_us_turns"] = host
+
+    q = _quantized_backbone(tr, cfg, degrade_to=LOW)
+    art8, int8 = export("int8", degrade_to=LOW, backbone_apply=q, quantized=True)
+    int8["weights_checked"] = _weights_match(art8, q, "backbone")
+    e_int8 = compare("int8", art8, build_serving_fn(lambda y: q(y).float(), degrade_to=LOW,
+                                                    image_size=S, device="cuda"),
+                     one_launch, int8, iters=4)
+    int8["cos_to_float_artifact_min"] = _cos_min(e_int8, e_float)
+    del q, art8
+
+    bb = frozen_copy(tr.model.backbone)                  # float32, eval mode
+    gen = build_hallucinator(SR_SCALE, 16, "pil", True).to("cuda")
+    plug = sr_apply_from_state(gen)
+    art_sr, sr = export("hallucinated", degrade_to=SR_LOW, sr_apply=plug, backbone_apply=bb)
+    art_bic, bic = export("bicubic14", degrade_to=SR_LOW, backbone_apply=bb)
+    live_sr = build_serving_fn(lambda y: bb(y).float(), degrade_to=SR_LOW, image_size=S,
+                               sr_apply=plug, device="cuda")
+    with strict_fp32():
+        e_sr = compare("hallucinated", art_sr, live_sr, SR_ONE_RESIZE, sr, iters=2)
+        e_bic, bic_launches = _one_call(fp, art_bic, x)
+    diff = (e_sr - e_bic).abs().max().item()
+    if bic_launches != one_launch or diff > 1e-2:
+        raise AssertionError(f"export: G at init vs the bicubic artifact max diff {diff} "
+                             f"(want ≤ 1e-2), bicubic launches {bic_launches}")
+    sr.update(float32=True, vs_bicubic_max_abs=diff, bicubic14=bic)
+    del art_sr, art_bic, bb, gen, plug, live_sr
+    torch.cuda.empty_cache()
+    out = {"phase": "export", "backbone": "ir_50", "batch": B, "degrade_to": LOW,
+           "input_dtype": "uint8", "bf16": bf16, "int8": int8, "hallucinated": sr,
+           "launches": bf16["launches"]}
+    return out, {"trainer": tr, "cfg": cfg, "art": art, "path": bf16["path"], "meta": bf16["meta"]}
+
+
+def _post(url: str, arr=None, timeout: float = 300):
+    data = b""
+    if arr is not None:
+        buf = io.BytesIO()
+        np.save(buf, arr, allow_pickle=False)
+        data = buf.getvalue()
+    req = urllib.request.Request(url, data=data, method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        body = r.read()
+        return (json.loads(body) if r.headers["Content-Type"] == "application/json"
+                else np.load(io.BytesIO(body), allow_pickle=False))
+
+
+def _latency_ms(fn, n: int = 5) -> float:
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def phase_serve_artifact(fp, bs, st: dict, tmp: str) -> tuple[dict, dict]:
+    """``serve_artifact`` in this process on the bf16 artifact: ``/embed`` of
+    300 images (two coalesced static batches, two kernel-1 launches) equal
+    to the loaded artifact on the same padded batches; ``/match`` (pixels)
+    against a 2^16-row bank, with the first eight rows planted, equal to
+    ``topk_matches_bank`` on the ``/embed`` rows, one ``bank_tilemax``
+    launch a request; with ``--mutable-gallery``: ``/enroll``, ``/match``,
+    ``/remove``, ``/match``; the latency of a few requests."""
+    from crfr_torch.eval.bank import save_bank, topk_matches_bank
+    from crfr_torch.serve_http import serve_artifact
+
+    art = st["art"]
+    imgs = np.random.default_rng(31).integers(0, 256, (SERVE_IMGS, S, S, 3)).astype(np.uint8)
+    pad = np.zeros((2 * B - SERVE_IMGS, S, S, 3), np.uint8)
+    direct = torch.cat([art(imgs[:B]), art(np.concatenate([imgs[B:], pad]))[:SERVE_IMGS - B]])
+    direct = direct.cpu().numpy()
+    rows = unit_rows(32, SERVE_BANK_M)
+    rows[:8] = direct[:8] / np.linalg.norm(direct[:8], axis=1, keepdims=True)
+    save_bank(f"{tmp}/bank.npz", build_bank(rows))
+    faces = imgs[:8]
+
+    def serving(srv):
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        return f"http://127.0.0.1:{srv.server_address[1]}", th
+
+    def stop(srv, th):
+        srv.shutdown()
+        srv.server_close()
+        srv.service.close()
+        th.join(timeout=30)
+        if th.is_alive():
+            raise AssertionError("serve_artifact: the server thread did not stop")
+
+    srv = serve_artifact(st["path"], f"{tmp}/bank.npz")
+    url, th = serving(srv)
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        _zero_counts(fp)
+        t0 = time.perf_counter()
+        emb = _post(url + "/embed", imgs)
+        embed_s = time.perf_counter() - t0
+        embed_launches = _counts(fp)
+        bs.bank_tilemax.launches = 0
+        matched = _post(url + "/match?k=5", faces)
+        match_launches = bs.bank_tilemax.launches
+        latency = {"embed_1": _latency_ms(lambda: _post(url + "/embed", imgs[:1])),
+                   "embed_256": _latency_ms(lambda: _post(url + "/embed", imgs[:B]), 3),
+                   "match_8_pixels": _latency_ms(lambda: _post(url + "/match?k=5", faces)),
+                   "match_8_embeddings": _latency_ms(
+                       lambda: _post(url + "/match?k=5", emb[:8]))}
+    finally:
+        stop(srv, th)
+    if not (health["ok"] and health["gallery"] == SERVE_BANK_M and not health["mutable"]):
+        raise AssertionError(f"serve_artifact: health {health}")
+    err = float(np.abs(emb - direct).max())
+    if emb.shape != (SERVE_IMGS, 512) or err > 1e-5:
+        raise AssertionError(f"serve_artifact: /embed {emb.shape} vs the artifact max diff {err}")
+    if embed_launches["fused_degrade_normalize"] != 2:
+        raise AssertionError(f"serve_artifact: /embed of {SERVE_IMGS} launched {embed_launches}")
+    dev_bank = build_bank(rows).to_device("cuda")
+    p = np.pad(emb[:8], ((0, 24), (0, 0)))                     # the server's (32, 16) bucket
+    s_want, l_want = topk_matches_bank(p, dev_bank, k=16)
+    labels = [m["labels"] for m in matched["matches"]]
+    scores = np.array([m["scores"] for m in matched["matches"]])
+    if labels != l_want[:8, :5].tolist() or np.abs(scores - s_want[:8, :5]).max() > 1e-4:
+        raise AssertionError(f"serve_artifact: /match {labels} != topk_matches_bank "
+                             f"{l_want[:8, :5].tolist()}")
+    if [row[0] for row in labels] != list(range(8)) or match_launches != 1:
+        raise AssertionError(f"serve_artifact: planted rows not top-1 ({labels}) or "
+                             f"bank_tilemax launched {match_launches} times, want once")
+
+    srv = serve_artifact(st["path"], mutable=True)
+    url, th = serving(srv)
+    try:
+        new = list(range(1000, 1008))
+        t0 = time.perf_counter()
+        enrolled = _post(url + "/enroll?labels=" + ",".join(map(str, new)), faces)
+        enroll_ms = 1e3 * (time.perf_counter() - t0)
+        bs.bank_tilemax.launches = 0
+        found = _post(url + "/match?k=1", faces)
+        mutable_launches = bs.bank_tilemax.launches
+        removed = _post(url + "/remove?labels=" + ",".join(map(str, new[:4])))
+        after = _post(url + "/match?k=1", faces)
+    finally:
+        stop(srv, th)
+    if enrolled["labels"] != new or [m["labels"][0] for m in found["matches"]] != new:
+        raise AssertionError(f"serve_artifact: /enroll {enrolled}, /match {found['matches']}")
+    if removed != {"removed": 4, "gallery": 4} or \
+            [m["labels"][0] for m in after["matches"]][4:] != new[4:] or \
+            any(m["labels"][0] in new[:4] for m in after["matches"]) or mutable_launches != 1:
+        raise AssertionError(f"serve_artifact: /remove {removed}, then {after['matches']}")
+    launches = {**embed_launches, "bank_tilemax": match_launches}
+    return ({"phase": "serve_artifact", "images": SERVE_IMGS, "static_batch": B,
+             "bank_rows": SERVE_BANK_M, "embed_max_abs_vs_artifact": err,
+             "embed_equal_to_artifact": bool(err == 0.0), "embed_s_300": embed_s,
+             "dispatches": health["dispatches"], "match_equals_topk_matches_bank": True,
+             "latency_ms": {**latency, "enroll_8_pixels": enroll_ms},
+             "mutable": {"enrolled": new, "removed": 4, "bank_tilemax_per_match":
+                         mutable_launches},
+             "launches": launches},
+            {"embed": emb, "match": matched, "imgs": imgs, "faces": faces})
+
+
+def _child_env() -> dict:
+    root = Path(__file__).resolve().parent
+    return {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(root), *filter(None, [os.environ.get("PYTHONPATH")])])}
+
+
+def phase_serve_cli(st: dict, served: dict, tmp: str) -> dict:
+    """The export phase's trainer saved as a checkpoint; ``python -m
+    crfr_torch export`` in a child process (its meta equal to phase 20's),
+    then ``python -m crfr_torch serve-http --artifact --gallery-npz
+    --mutable-gallery --port 0`` in another: its JSON line read, ``/embed``
+    and ``/match`` equal to the in-process server's answers (the 2^16-row
+    bank now a ``ServingBank``), ``/enroll`` of eight other faces found by
+    ``/match``, ``/remove`` of them, then SIGINT (exit 0)."""
+    import signal
+
+    from crfr_torch.serve import read_meta
+    from crfr_torch.train.checkpoints import Checkpointer
+
+    root = Path(__file__).resolve().parent
+    tr = st["trainer"]
+    Checkpointer(f"{tmp}/ck").save(0, tr.state, st["cfg"].to_json(), force=True)
+    art = f"{tmp}/cli.crfrt"
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "crfr_torch", "export", "--ckpt", f"{tmp}/ck",
+                        "--out", art, "--batch", str(B), "--degrade", str(LOW)], cwd=root,
+                       env=_child_env(), capture_output=True, text=True, timeout=600)
+    export_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"serve_cli: export exit {r.returncode}\n{r.stderr[-4000:]}")
+    printed = json.loads(r.stdout.strip().splitlines()[-1])
+    if read_meta(art) != st["meta"] or printed != {**st["meta"], "out": art}:
+        raise AssertionError(f"serve_cli: export meta {printed} != {st['meta']}")
+    new = list(range(10_000_000, 10_000_008))           # labels past the bank's
+    others = served["imgs"][8:16]                       # faces not planted in the bank
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "crfr_torch", "serve-http", "--artifact", art,
+                             "--gallery-npz", f"{tmp}/bank.npz", "--mutable-gallery",
+                             "--port", "0"], cwd=root, env=_child_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        line = json.loads(proc.stdout.readline() or "{}")
+        start_s = time.perf_counter() - t0
+        if not (line.get("serving") and line.get("artifact") == art and line.get("gallery")
+                and line.get("mutable")):
+            raise AssertionError(f"serve_cli: serve-http printed {line}")
+        url = line["serving"]
+        emb = _post(url + "/embed", served["imgs"])
+        matched = _post(url + "/match?k=5", served["faces"])
+        enrolled = _post(url + "/enroll?labels=" + ",".join(map(str, new)), others)
+        found = _post(url + "/match?k=1", others)
+        removed = _post(url + "/remove?labels=" + ",".join(map(str, new)))
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait(timeout=30)
+        err = proc.stderr.read()
+        proc.stdout.close()
+        proc.stderr.close()
+    if rc != 0:
+        raise AssertionError(f"serve_cli: serve-http exit {rc}\n{err[-4000:]}")
+    diff = float(np.abs(emb - served["embed"]).max())
+    got, want = matched["matches"], served["match"]["matches"]
+    if diff > 1e-5 or matched["gallery"] != served["match"]["gallery"] or \
+            [m["labels"] for m in got] != [m["labels"] for m in want] or \
+            np.abs(np.array([m["scores"] for m in got]) -
+                   np.array([m["scores"] for m in want])).max() > 1e-4:
+        raise AssertionError(f"serve_cli: the child's /embed differs by {diff} or its /match "
+                             f"{got[:2]} != {want[:2]}")
+    if enrolled["labels"] != new or [m["labels"][0] for m in found["matches"]] != new or \
+            removed != {"removed": 8, "gallery": SERVE_BANK_M}:
+        raise AssertionError(f"serve_cli: /enroll {enrolled}, /match {found['matches'][:2]}, "
+                             f"/remove {removed}")
+    return {"phase": "serve_cli", "export_s": export_s, "serve_start_s": start_s,
+            "embed_max_abs_vs_in_process": diff, "match_equals_in_process": True,
+            "enrolled_found": True, "removed": removed, "serving": line, "exit_code": rc}
+
+
+EVAL_S, EVAL_IDS = 64, 16              # the eval phase's image size and identities
+
+
+def _write_protocols(d: Path, rng) -> dict:
+    """Rendered faces (``data.render``) as the files of each protocol: an LFW
+    tree and pairs.txt, SCface gallery and probe directories, open-set
+    lists, an insightface .bin, IJB-C meta lists and pairs, an identity
+    folder tree and an MX .rec of it."""
+    from PIL import Image
+
+    from crfr_torch.data.bins import save_bin
+    from crfr_torch.data.mxrec import write_mx_record
+    from crfr_torch.data.render import RenderedIdentities
+
+    ren = RenderedIdentities(EVAL_IDS, image_size=EVAL_S, seed=5)
+
+    def face(i: int) -> np.ndarray:
+        return np.clip(np.rint(ren.render(i, rng)), 0, 255).astype(np.uint8)
+
+    def save(path: Path, img) -> str:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(img).save(path)
+        return str(path)
+
+    for i in range(EVAL_IDS):
+        for j in (1, 2, 3):
+            save(d / "lfw" / f"p{i}" / f"p{i}_{j:04d}.jpg", face(i))
+    same = [f"p{i} 1 {j}" for i in range(EVAL_IDS) for j in (2, 3)]
+    diff = [f"p{i} 1 p{(i + k) % EVAL_IDS} {k + 1}" for i in range(EVAL_IDS) for k in (1, 2)]
+    (d / "pairs.txt").write_text("\n".join(["4 16", *[v for pair in zip(same, diff)
+                                                       for v in pair]]) + "\n")
+    for i in range(EVAL_IDS):
+        save(d / "sc_gallery" / f"{i:03d}_frontal.png", face(i))
+        for cam in (1, 2):
+            save(d / "sc_probes" / f"{i:03d}_cam{cam}_1.png", face(i))
+    lists = {"gallery": [], "mated": [], "unmated": []}
+    for i in range(EVAL_IDS):
+        kind = "gallery" if i < 12 else "unmated"
+        lists[kind].append(f"{save(d / 'os' / f'g{i}.png', face(i))} {i}")
+        lists["mated" if i < 12 else "unmated"].append(
+            f"{save(d / 'os' / f'p{i}.png', face(i))} {i}")
+    for k, v in lists.items():
+        (d / f"os_{k}.txt").write_text("\n".join(v) + "\n")
+    i1, i2, issame = ren.eval_pairs(rng, 16)
+    save_bin(str(d / "pairs.bin"), np.clip(np.rint(i1), 0, 255).astype(np.uint8),
+             np.clip(np.rint(i2), 0, 255).astype(np.uint8), issame)
+    meta, tid = [], 0
+    for s_id in range(8):
+        for _ in range(2):
+            for m in range(2):
+                meta.append(f"{save(d / 'ijbc' / f't{tid}_{m}.png', face(s_id))} {tid} "
+                            f"{10 * tid + m} {s_id}")
+            tid += 1
+    (d / "ijbc_meta.txt").write_text("\n".join(meta) + "\n")
+    (d / "ijbc_pairs.txt").write_text("\n".join(f"{2 * s} {2 * s + 1} 1\n{2 * s} "
+                                                f"{(2 * s + 3) % 16} 0" for s in range(8)))
+    (d / "ijbc_probe.txt").write_text("\n".join(meta[0::4]) + "\n")
+    (d / "ijbc_g1.txt").write_text("\n".join(meta[1::4][:4] + meta[2::4][4:]) + "\n")
+    (d / "ijbc_g2.txt").write_text("\n".join(meta[2::4][:4] + meta[1::4][4:]) + "\n")
+    jpegs = []
+    for i in range(4):
+        for j in range(3):
+            img = face(i)
+            save(d / "tree" / f"id{i}" / f"{j}.png", img)
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, format="JPEG", quality=95)
+            jpegs.append((float(i), buf.getvalue()))
+    write_mx_record(str(d / "train.rec"), jpegs, insightface_meta=True)
+    return {"tree_images": 12, "rec_images": len(jpegs)}
+
+
+def phase_eval_cli(fp, bs) -> dict:
+    """The evaluation commands on rendered faces at 64 px with a 2-step
+    float32 IR-18 checkpoint of ``train``, in this process, each on the
+    card (under ``strict_fp32``, kernel launches counted around it) and
+    again with ``--device cpu``: ``eval-verification`` (bicubic and
+    ``--sr-ckpt`` of G at init), ``eval-scface``, ``eval-openset`` (image
+    lists, and ``--probe-npy``), ``eval-bin`` on a ``.bin`` of ``save_bin``,
+    ``eval-ijbc`` (1:1 and 1:N, and ``--probe-tpl-npy``), ``import-torch``
+    of a seeded face.evoLVe dict followed by ``eval-verification`` on it;
+    each pair of JSON lines equal (accuracies and ranks exactly, other
+    numbers within 1e-4). ``pack`` of the folder tree and of the ``.rec``
+    read back through ``PackSource``."""
+    import contextlib
+
+    try:
+        from PIL import Image  # noqa: F401
+    except ImportError:
+        return {"phase": "eval_cli", "run": False, "why": "PIL not installed"}
+    from crfr_torch.cli import main as cli
+    from crfr_torch.device import strict_fp32
+    from crfr_torch.models.irse import build_backbone
+    from crfr_torch.train.torch_import import export_face_evolve_state_dict
+
+    def run(*argv) -> tuple[dict, float]:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli(list(argv))
+        if rc != 0:
+            raise AssertionError(f"eval_cli: {argv[0]} exit {rc}")
+        return json.loads(out.getvalue().strip().splitlines()[-1]), time.perf_counter() - t0
+
+    def close(a, b, path="") -> None:
+        if isinstance(a, dict):
+            if set(a) != set(b):
+                raise AssertionError(f"eval_cli: keys {path} {sorted(a)} != {sorted(b)}")
+            for k in a:
+                close(a[k], b[k], f"{path}.{k}")
+        elif isinstance(a, list):
+            if len(a) != len(b):
+                raise AssertionError(f"eval_cli: {path} lengths {len(a)} != {len(b)}")
+            for i, (u, v) in enumerate(zip(a, b)):
+                close(u, v, f"{path}[{i}]")
+        elif isinstance(a, float) and path.split(".")[-1] not in ("accuracy", "rank1",
+                                                                    "rank1_g1", "rank1_g2"):
+            if abs(a - b) > 1e-4:
+                raise AssertionError(f"eval_cli: {path} {a} vs {b}")
+        elif a != b:
+            raise AssertionError(f"eval_cli: {path} {a} != {b}")
+
+    rng = np.random.default_rng(40)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        d = Path(tmp)
+        written = _write_protocols(d, rng)
+        ov = [f"data.image_size={EVAL_S}", f"model.input_size={EVAL_S}",
+              f"data.num_classes={EVAL_IDS}", "model.backbone=ir_18",
+              "model.compute_dtype=float32", "model.dropout=0.0", "train.batch_size=16",
+              "eval.batch_size=32", "eval.n_folds=4"]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            if cli(["train", "--preset", "casia_arcface", *ov, f"train.checkpoint_dir={d}/ck",
+                    "--max-steps", "2"]) != 0:
+                raise AssertionError("eval_cli: train failed")
+        train_s = time.perf_counter() - t0
+        from crfr_torch.configs import get_config
+        from crfr_torch.train.checkpoints import Checkpointer
+        from crfr_torch.train.sr_loop import SRTrainer
+
+        sr = SRTrainer(get_config("casia_arcface", ov), scale=4, device="cpu")
+        Checkpointer(f"{d}/sr").save(0, sr.state_dict(), force=True)
+        del sr
+        sd = export_face_evolve_state_dict(build_backbone(
+            "ir_18", input_size=EVAL_S, generator=torch.Generator().manual_seed(41)))
+        torch.save({k: torch.from_numpy(v) for k, v in sd.items()}, d / "evolve.pth")
+        emb = np.random.default_rng(42).normal(size=(60, 512)).astype(np.float32)
+        np.save(d / "g.npy", emb[:40])
+        np.save(d / "gl.npy", np.arange(40))
+        np.save(d / "p.npy", emb[:20] + 0.3 * np.random.default_rng(43).normal(
+            size=(20, 512)).astype(np.float32))
+        np.save(d / "pl.npy", np.r_[np.arange(10), np.arange(100, 110)])
+        np.save(d / "mated.npy", np.r_[np.ones(10, bool), np.zeros(10, bool)])
+        for name, v in (("ptpl", emb[:12]), ("psub", np.arange(12)), ("g1tpl", emb[:6]),
+                        ("g1sub", np.arange(6)), ("g2tpl", emb[6:12]),
+                        ("g2sub", np.arange(6, 12))):
+            np.save(d / f"{name}.npy", v)
+        ck = ["--ckpt", f"{d}/ck"]
+        commands = {
+            "eval_verification": ["eval-verification", *ck, "--pairs", f"{d}/pairs.txt",
+                                  "--lfw-root", f"{d}/lfw", "--degrade", "16"],
+            "eval_verification_sr": ["eval-verification", *ck, "--pairs", f"{d}/pairs.txt",
+                                     "--lfw-root", f"{d}/lfw", "--sr-ckpt", f"{d}/sr",
+                                     "--sr-scale", "4"],
+            "eval_scface": ["eval-scface", *ck, "--gallery", f"{d}/sc_gallery",
+                            "--probes", f"{d}/sc_probes", "--distance", "1"],
+            "eval_openset": ["eval-openset", *ck, "--gallery-list", f"{d}/os_gallery.txt",
+                             "--mated-list", f"{d}/os_mated.txt",
+                             "--unmated-list", f"{d}/os_unmated.txt", "--degrade", "16",
+                             "--max-rank", "5"],
+            "eval_openset_npy": ["eval-openset", "--probe-npy", f"{d}/p.npy",
+                                 "--probe-labels-npy", f"{d}/pl.npy",
+                                 "--gallery-npy", f"{d}/g.npy",
+                                 "--gallery-labels-npy", f"{d}/gl.npy",
+                                 "--mated-npy", f"{d}/mated.npy"],
+            "eval_bin": ["eval-bin", *ck, "--bin", f"{d}/pairs.bin", "--degrade", "16"],
+            "eval_ijbc": ["eval-ijbc", *ck, "--meta", f"{d}/ijbc_meta.txt",
+                          "--pairs", f"{d}/ijbc_pairs.txt", "--probe-meta", f"{d}/ijbc_probe.txt",
+                          "--gallery-g1", f"{d}/ijbc_g1.txt", "--gallery-g2", f"{d}/ijbc_g2.txt"],
+            "eval_ijbc_npy": ["eval-ijbc", "--probe-tpl-npy", f"{d}/ptpl.npy",
+                              "--probe-subjects-npy", f"{d}/psub.npy",
+                              "--g1-tpl-npy", f"{d}/g1tpl.npy", "--g1-subjects-npy",
+                              f"{d}/g1sub.npy", "--g2-tpl-npy", f"{d}/g2tpl.npy",
+                              "--g2-subjects-npy", f"{d}/g2sub.npy"],
+        }
+        with strict_fp32():
+            for dev in ("cuda", "cpu"):
+                imp, _ = run("import-torch", "--torch-ckpt", f"{d}/evolve.pth", "--out",
+                             f"{d}/imported_{dev}", "--device", dev, *ov)
+                if imp["keys"] != len(sd):
+                    raise AssertionError(f"eval_cli: import-torch {imp}")
+            commands["eval_verification_imported"] = [
+                "eval-verification", "--ckpt", f"{d}/imported_cuda", "--pairs", f"{d}/pairs.txt",
+                "--lfw-root", f"{d}/lfw", "--degrade", "16"]
+            for name, argv in commands.items():
+                _zero_counts(fp)
+                bs.bank_tilemax.launches = 0
+                card, card_s = run(*argv, "--device", "cuda")
+                torch.cuda.synchronize()
+                launches = {**_counts(fp), "bank_tilemax": bs.bank_tilemax.launches}
+                cpu, cpu_s = run(*argv, "--device", "cpu")
+                close(card, cpu, name)
+                runs[name] = {"card": card, "card_s": card_s, "cpu_s": cpu_s,
+                              "launches": launches}
+        a = Checkpointer(f"{d}/imported_cuda").restore()["model"]
+        b = Checkpointer(f"{d}/imported_cpu").restore()["model"]
+        if set(a) != set(b) or not all(torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError("eval_cli: import-torch on the card and on the CPU differ")
+        from crfr_torch.data.records import PackSource
+
+        packs = {}
+        for name, src in (("tree", ["--root", f"{d}/tree", "--size", str(EVAL_S)]),
+                          ("rec", ["--from-rec", f"{d}/train.rec"])):
+            out, _ = run("pack", *src, "--out", f"{d}/{name}.crfrpack")
+            ps = PackSource(f"{d}/{name}.crfrpack")
+            labels = [ps[i][0] for i in range(len(ps))]
+            if out["images"] != written[f"{name}_images"] or out["identities"] != 4 or \
+                    labels != [i // 3 for i in range(12)] or ps[0][1].shape != (EVAL_S, EVAL_S, 3):
+                raise AssertionError(f"eval_cli: pack {name} {out}, labels {labels}")
+            packs[name] = out
+    want = {"eval_verification": 1, "eval_verification_sr": 0, "eval_openset": 1,
+            "eval_bin": 1, "eval_verification_imported": 1}
+    for name, n in want.items():
+        got = runs[name]["launches"]["fused_degrade_normalize"]
+        if (got == 0) != (n == 0):
+            raise AssertionError(f"eval_cli: {name} launched kernel 1 {got} times")
+    if runs["eval_verification_sr"]["launches"]["fused_resize_normalize"] < 1:
+        raise AssertionError("eval_cli: --sr-ckpt did not launch kernel 2")
+    return {"phase": "eval_cli", "run": True, "image_size": EVAL_S, "identities": EVAL_IDS,
+            "train_s": train_s, "card_equals_cpu": True, "packs": packs,
+            "runs": {k: {"card": v["card"] if k != "eval_openset_npy" else
+                         {"rank1": v["card"]["rank1"]}, "card_s": v["card_s"],
+                         "cpu_s": v["cpu_s"], "launches": v["launches"]}
+                     for k, v in runs.items()},
+            "launches": {k: v["launches"] for k, v in runs.items()}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2159,6 +2809,17 @@ def main() -> int:
     del det_state
     mobilefacenet = phase_mobilefacenet(fp)
     emit({**mobilefacenet, "card": smi})
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        export, ex_state = phase_export(fp, tmp)
+        emit({**export, "card": smi})
+        serve_artifact, served = phase_serve_artifact(fp, bs, ex_state, tmp)
+        emit({**serve_artifact, "card": smi})
+        emit(phase_serve_cli(ex_state, served, tmp))
+    del ex_state, served
+    torch.cuda.empty_cache()
+    eval_cli = phase_eval_cli(fp, bs)
+    emit(eval_cli)
     # launches on each kernel's own main path: embed for the int form of the
     # preprocessing kernel, the gallery scan for bank_tilemax, a train step
     # for the form with a low per image, an SR train step for the resize
@@ -2170,7 +2831,12 @@ def main() -> int:
              **({"int8_cli_match": int8_cli["launches"]} if int8_cli["run"] else {}),
              "headline": headline["launches"], "detect": detect["launches"],
              "train_mtcnn": detect["train_launches"], "recognize": recognize["launches"],
-             "mobilefacenet": mobilefacenet["launches"]}
+             "mobilefacenet": mobilefacenet["launches"], "export": export["launches"],
+             "export_int8": export["int8"]["launches"],
+             "export_hallucinated": export["hallucinated"]["launches"],
+             "serve_artifact": serve_artifact["launches"],
+             **({f"eval_cli_{k}": v for k, v in eval_cli["launches"].items()}
+                if eval_cli["run"] else {})}
     own = {"bank_tilemax": gallery, LOWS_NAME: train, "fused_resize_normalize": sr_train}
     for k in kernels:
         k["launches"] = own.get(k["name"], embed)["launches"][k["name"]]

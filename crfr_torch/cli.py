@@ -1,4 +1,4 @@
-"""Command line of crfr_torch (crfr/cli.py). Subcommands so far:
+"""Command line of crfr_torch (crfr/cli.py). Subcommands:
 
     python -m crfr_torch train --preset casia_arcface [key=value ...]
         [--max-steps N] [--steps-per-epoch N] [--resume] [--workers N]
@@ -29,6 +29,26 @@
          [--degrade N] [--sr-ckpt DIR [--sr-scale 8] [--sr-bicubic-skip 1|0]])
         [--gallery-labels-npy L.npy] [--k 5] [--approx] [--approx-recall R]
         [--preset P] [key=value ...] [--device cuda|cpu]
+
+    python -m crfr_torch eval-verification --ckpt DIR --pairs pairs.txt --lfw-root R
+        [--degrade N] [--degrade-side first|second|both] [--sr-ckpt DIR ...]
+    python -m crfr_torch eval-scface --ckpt DIR --gallery G --probes P [--distance 1|2|3]
+    python -m crfr_torch eval-openset (--ckpt DIR --gallery-list L --mated-list L
+        --unmated-list L [--root R] [--degrade N] | --probe-npy P --probe-labels-npy L
+        --gallery-npy G [--gallery-labels-npy L] --mated-npy M) [--max-rank 20]
+    python -m crfr_torch eval-bin --ckpt DIR --bin lfw.bin [--degrade N]
+    python -m crfr_torch eval-ijbc (--ckpt DIR [--meta M --pairs P] [--probe-meta M
+        --gallery-g1 G1 --gallery-g2 G2] [--root R] | --probe-tpl-npy ...)
+    python -m crfr_torch import-torch --torch-ckpt backbone.pth --out DIR
+    python -m crfr_torch export --ckpt DIR --out model.crfrt [--batch 256] [--degrade N]
+        [--flip-tta] [--int8] [--sr-ckpt DIR ...]
+    python -m crfr_torch pack (--root TREE | --from-rec train.rec [--idx I])
+        --out records.crfrpack [--size 112]
+    python -m crfr_torch serve-http --artifact model.crfrt [--gallery-npz BANK.npz]
+        [--mutable-gallery [--gallery-slab N]] [--host H] [--port 8321] [--window-ms 2]
+
+Each command but ``pack`` and ``serve-http`` takes ``--device cuda|cpu``,
+``--preset P`` and key=value overrides.
 
 ``train`` writes JSONL metrics and checkpoints under ``train.checkpoint_dir``
 (``data_state.json`` beside them when it reads records), resumes from the
@@ -74,6 +94,19 @@ included) against a float ``.npy`` gallery or an int8 ``.npz`` bank and
 prints the top-k labels and scores per probe; ``--approx`` and
 ``--approx-recall`` are accepted and the selection stays exact. Both print
 ``crfr``'s JSON lines.
+
+The ``eval-*`` commands run ``crfr``'s protocols and print its JSON lines:
+``eval-verification`` (LFW pairs; only the probe side of each pair is
+degraded, or hallucinated with ``--sr-ckpt``), ``eval-scface`` (rank-1 and
+CMC), ``eval-openset`` (rank-1, CMC, TPIR@FPIR; from images or from
+embeddings), ``eval-bin`` (an insightface ``.bin``) and ``eval-ijbc``
+(1:1 TAR@FAR, 1:N over two galleries, or 1:N from pooled templates).
+``import-torch`` writes a face.evoLVe state dict into a ``train``
+checkpoint. ``export`` writes a serving artifact (``serve.export_embed``)
+on ``--device``, which ``serve-http --artifact`` serves on that device,
+printing ``{"serving": URL, ...}`` first. ``pack`` writes ``.crfrpack``
+records from an identity folder tree or an MXNet ``.rec``; it writes no
+ArrayRecord.
 """
 
 from __future__ import annotations
@@ -109,8 +142,8 @@ def cmd_train(args, overrides: list[str]) -> int:
     from crfr_torch.utils.logging import MetricsWriter
 
     if args.eval_bin:
-        raise NotImplementedError("--eval-bin needs data/bins.py, which is not ported yet "
-                                  "(ROADMAP.md item 13)")
+        raise NotImplementedError("--eval-bin (evaluation on a data/bins.py set during "
+                                  "training) is not ported yet (ROADMAP.md item 13)")
     if args.recycle_every_steps:
         raise NotImplementedError("--recycle-every-steps is not ported yet (ROADMAP.md item 13)")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
@@ -276,8 +309,8 @@ def cmd_train_distill(args, overrides: list[str]) -> int:
     from crfr_torch.utils.logging import MetricsWriter
 
     if args.eval_bin:
-        raise NotImplementedError("--eval-bin needs data/bins.py, which is not ported yet "
-                                  "(ROADMAP.md item 13)")
+        raise NotImplementedError("--eval-bin (evaluation on a data/bins.py set during "
+                                  "training) is not ported yet (ROADMAP.md item 13)")
     if args.sr_finetune and not args.sr_ckpt:
         raise ValueError("--sr-finetune requires --sr-ckpt")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
@@ -372,19 +405,16 @@ def _embed_fn_from_ckpt(args, overrides: list[str]):
     return tr, cfg
 
 
-def _backbone_apply(tr, cfg, args, sample_paths=(), degrade_to: int | None = None):
-    """The float backbone (default) or, with ``--int8``, its int8 twin
-    (``models.quant``), as normalized pixels → embeddings. The int8 one is
-    calibrated on up to two batches of the run's own images through the
-    front end the caller embeds with (the plain bicubic down-up operator to
+def _quantized_backbone(tr, cfg, sample_paths=(), degrade_to: int | None = None):
+    """The trainer's backbone as its int8 twin (``models.quant``), calibrated
+    on up to two batches of the run's own images through the front end the
+    caller embeds with (the plain bicubic down-up operator to
     ``degrade_to``, then normalization), or on one batch of seeded noise
     when there are no images; it computes in the trainer's compute dtype.
 
     As in ``crfr``, the calibration batches are ``embed_batches``' own, so
     a last batch that is not full brings its zero padding with it
     (ROADMAP.md §3 records what that does to the scales)."""
-    if not args.int8:
-        return lambda x: tr.backbone_apply(tr.model.backbone, x)
     import numpy as np
 
     from crfr_torch.models.quant import calibration_batch, quantize_backbone
@@ -405,7 +435,15 @@ def _backbone_apply(tr, cfg, args, sample_paths=(), degrade_to: int | None = Non
                 break
     else:
         calib = [prep(np.random.default_rng(0).integers(0, 256, (32, size, size, 3)))]
-    q = quantize_backbone(tr.model.backbone, calib, compute_dtype=tr.compute_dtype)
+    return quantize_backbone(tr.model.backbone, calib, compute_dtype=tr.compute_dtype)
+
+
+def _backbone_apply(tr, cfg, args, sample_paths=(), degrade_to: int | None = None):
+    """The float backbone (default) or, with ``--int8``, its int8 twin
+    (``_quantized_backbone``), as normalized pixels → embeddings."""
+    if not getattr(args, "int8", False):
+        return lambda x: tr.backbone_apply(tr.model.backbone, x)
+    q = _quantized_backbone(tr, cfg, sample_paths, degrade_to)
     return lambda x: q(x).float()
 
 
@@ -417,6 +455,27 @@ def _sr_apply_if_requested(args, cfg):
 
     return load_sr_apply(args.sr_ckpt, cfg, scale=args.sr_scale,
                          bicubic_skip=bool(args.sr_bicubic_skip), device=args.device)
+
+
+def _lr_degrade(args, cfg, sr_apply) -> int | None:
+    """The probe side's size: ``--degrade``, else the config's
+    ``eval_degrade_size``, else G's input size with ``--sr-ckpt``; None for
+    none."""
+    degrade = args.degrade or cfg.data.eval_degrade_size
+    if sr_apply is not None and not degrade:
+        degrade = cfg.model.input_size // args.sr_scale
+    return degrade or None
+
+
+def _extract_kw(tr, cfg) -> dict:
+    return dict(resize_mode=cfg.data.resize_mode, flip_fusion=cfg.eval.flip_fusion,
+                image_size=cfg.model.input_size, device=tr.device)
+
+
+def _embed_paths(paths, fn, cfg):
+    from crfr_torch.eval.extract import extract_embeddings
+
+    return extract_embeddings(paths, fn, cfg.eval.batch_size, cfg.model.input_size)
 
 
 def _load_gallery(path: str, labels_path: str = ""):
@@ -442,7 +501,7 @@ def _approx_flag(args):
 def cmd_extract(args, overrides: list[str]) -> int:
     import numpy as np
 
-    from crfr_torch.eval.extract import extract_embeddings, make_extract_fn
+    from crfr_torch.eval.extract import make_extract_fn
 
     tr, cfg = _embed_fn_from_ckpt(args, overrides)
     paths, labels = [], []
@@ -455,9 +514,8 @@ def cmd_extract(args, overrides: list[str]) -> int:
             labels.append(int(parts[1]) if len(parts) > 1 else -1)
     degrade = args.degrade or None
     fn = make_extract_fn(_backbone_apply(tr, cfg, args, paths, degrade), degrade_to=degrade,
-                         resize_mode=cfg.data.resize_mode, flip_fusion=cfg.eval.flip_fusion,
-                         image_size=cfg.model.input_size, device=tr.device)
-    embs = extract_embeddings(paths, fn, cfg.eval.batch_size, cfg.model.input_size)
+                         **_extract_kw(tr, cfg))
+    embs = _embed_paths(paths, fn, cfg)
     dim = int(embs.shape[1]) if len(embs) else 0
     labelled = any(lab >= 0 for lab in labels)
     if args.quantize_bank:
@@ -489,26 +547,329 @@ def cmd_match(args, overrides: list[str]) -> int:
     else:
         if not (args.ckpt and args.list):
             raise ValueError("match needs --probe-npy, or --ckpt and a --list of probe images")
-        from crfr_torch.eval.extract import extract_embeddings, make_extract_fn
+        from crfr_torch.eval.extract import make_extract_fn
 
         tr, cfg = _embed_fn_from_ckpt(args, overrides)
         with open(args.list) as f:
             paths = [os.path.join(args.root, ln.split()[0]) for ln in f if ln.split()]
         sr_apply = _sr_apply_if_requested(args, cfg)
-        degrade = args.degrade or cfg.data.eval_degrade_size
-        if sr_apply is not None and not degrade:
-            degrade = cfg.model.input_size // args.sr_scale
-        fn = make_extract_fn(_backbone_apply(tr, cfg, args, paths, degrade or None),
-                             degrade_to=degrade or None, sr_apply=sr_apply,
-                             resize_mode=cfg.data.resize_mode, flip_fusion=cfg.eval.flip_fusion,
-                             image_size=cfg.model.input_size, device=tr.device)
-        p = extract_embeddings(paths, fn, cfg.eval.batch_size, cfg.model.input_size)
+        degrade = _lr_degrade(args, cfg, sr_apply)
+        fn = make_extract_fn(_backbone_apply(tr, cfg, args, paths, degrade), degrade_to=degrade,
+                             sr_apply=sr_apply, **_extract_kw(tr, cfg))
+        p = _embed_paths(paths, fn, cfg)
     scores, labels = topk_matches(p, g, glab, k=args.k, block=cfg.eval.gallery_block,
                                   approx=_approx_flag(args), device=args.device)
     out = [{"labels": labels[i].tolist(), "scores": [round(float(v), 4) for v in scores[i]]}
            for i in range(len(labels))]
     print(json.dumps({"matches": out, "k": args.k, "gallery": len(g)}), flush=True)
     return 0
+
+
+def _verification_json(res) -> dict:
+    return {"accuracy": res.accuracy_mean, "std": res.accuracy_std, "eer": res.eer,
+            "tar_at_far": res.tar_at_far}
+
+
+def cmd_eval_verification(args, overrides: list[str]) -> int:
+    from crfr_torch.data.datasets import parse_lfw_pairs
+    from crfr_torch.eval.extract import make_extract_fn
+    from crfr_torch.eval.verification import evaluate_verification
+
+    tr, cfg = _embed_fn_from_ckpt(args, overrides)
+    proto = parse_lfw_pairs(args.pairs, args.lfw_root)
+    sr_apply = _sr_apply_if_requested(args, cfg)
+    degrade = _lr_degrade(args, cfg, sr_apply)
+    backbone = _backbone_apply(tr, cfg, args)
+    fn_hr = make_extract_fn(backbone, **_extract_kw(tr, cfg))
+    # the LR side: bicubic down and up, or down and G up with --sr-ckpt
+    fn_lr = make_extract_fn(backbone, degrade_to=degrade, sr_apply=sr_apply,
+                            **_extract_kw(tr, cfg))
+    # cross-resolution: only the probe side of each pair is degraded
+    # (--degrade-side second); 'both' gives the symmetric LR protocol
+    side = args.degrade_side if degrade else "none"
+    e1 = _embed_paths(proto.path1, fn_lr if side in ("first", "both") else fn_hr, cfg)
+    e2 = _embed_paths(proto.path2, fn_lr if side in ("second", "both") else fn_hr, cfg)
+    res = evaluate_verification(e1, e2, proto.issame, proto.n_folds, cfg.eval.far_targets,
+                                device=tr.device)
+    print(json.dumps(_verification_json(res)), flush=True)
+    return 0
+
+
+def cmd_eval_scface(args, overrides: list[str]) -> int:
+    from crfr_torch.data.datasets import scface_split
+    from crfr_torch.eval.extract import make_extract_fn
+    from crfr_torch.eval.identification import closed_set_identification
+
+    tr, cfg = _embed_fn_from_ckpt(args, overrides)
+    split = scface_split(args.gallery, args.probes, args.distance)
+    backbone = _backbone_apply(tr, cfg, args)
+    fn = make_extract_fn(backbone, **_extract_kw(tr, cfg))
+    sr_apply = _sr_apply_if_requested(args, cfg)
+    # with --sr-ckpt the probes go down to G's input size, then G up
+    fn_p = fn if sr_apply is None else make_extract_fn(
+        backbone, degrade_to=cfg.model.input_size // args.sr_scale, sr_apply=sr_apply,
+        **_extract_kw(tr, cfg))
+    g = _embed_paths(split.gallery_paths, fn, cfg)
+    p = _embed_paths(split.probe_paths, fn_p, cfg)
+    res = closed_set_identification(p, g, split.probe_labels, split.gallery_labels,
+                                    block=cfg.eval.gallery_block, device=tr.device)
+    print(json.dumps({"rank1": res.rank1, "cmc": res.cmc.tolist()}), flush=True)
+    return 0
+
+
+def _need(args, *names: str, mode: str) -> None:
+    missing = [n for n in names if not getattr(args, n)]
+    if missing:
+        raise ValueError(f"{mode} needs " + " ".join("--" + n.replace("_", "-")
+                                                    for n in missing))
+
+
+def cmd_eval_openset(args, overrides: list[str]) -> int:
+    """Open-set identification (TinyFace / QMUL-SurvFace): CMC and
+    TPIR@FPIR over the gallery, from image lists embedded with ``--ckpt``
+    (probes optionally degraded or hallucinated) or from precomputed
+    embeddings (``--probe-npy``), which need no model."""
+    import numpy as np
+
+    from crfr_torch.eval.identification import open_set_identification
+
+    if args.probe_npy:
+        _need(args, "gallery_npy", "probe_labels_npy", "mated_npy", mode="--probe-npy mode")
+        if not (args.gallery_labels_npy or args.gallery_npy.endswith(".npz")):
+            raise ValueError("--probe-npy mode needs --gallery-labels-npy (or a .npz bank)")
+        from crfr_torch.configs import get_config
+
+        g, glab = _load_gallery(args.gallery_npy, args.gallery_labels_npy)
+        p = np.load(args.probe_npy)
+        plab = np.load(args.probe_labels_npy)
+        mated = np.load(args.mated_npy).astype(bool)
+        cfg = get_config(args.preset, overrides)
+        device = args.device
+    else:
+        from crfr_torch.data.datasets import open_set_split
+        from crfr_torch.eval.extract import make_extract_fn
+
+        _need(args, "ckpt", "gallery_list", "mated_list", "unmated_list",
+              mode="image-list mode (or use --probe-npy)")
+        tr, cfg = _embed_fn_from_ckpt(args, overrides)
+        split = open_set_split(args.gallery_list, args.mated_list, args.unmated_list, args.root)
+        backbone = _backbone_apply(tr, cfg, args)
+        fn_g = make_extract_fn(backbone, **_extract_kw(tr, cfg))
+        sr_apply = _sr_apply_if_requested(args, cfg)
+        degrade = _lr_degrade(args, cfg, sr_apply)
+        # the probes (the native-LR side) may be degraded or hallucinated;
+        # the HR gallery never is
+        fn_p = (make_extract_fn(backbone, degrade_to=degrade, sr_apply=sr_apply,
+                                **_extract_kw(tr, cfg)) if degrade else fn_g)
+        g = _embed_paths(split.gallery_paths, fn_g, cfg)
+        p = _embed_paths(split.probe_paths, fn_p, cfg)
+        glab, plab, mated = split.gallery_labels, split.probe_labels, split.probe_mated
+        device = tr.device
+    res = open_set_identification(p, g, plab, glab, mated, cfg.eval.fpir_targets,
+                                  max_rank=args.max_rank, block=cfg.eval.gallery_block,
+                                  approx=_approx_flag(args), device=device)
+    print(json.dumps({"rank1": res.rank1, "cmc": res.cmc.tolist(),
+                      "tpir_at_fpir": res.tpir_at_fpir}), flush=True)
+    return 0
+
+
+def cmd_eval_bin(args, overrides: list[str]) -> int:
+    """An insightface ``.bin`` verification set (lfw.bin, cfp_fp.bin, agedb_30.bin)."""
+    from crfr_torch.data.bins import evaluate_bin
+    from crfr_torch.eval.extract import make_extract_fn
+
+    tr, cfg = _embed_fn_from_ckpt(args, overrides)
+    sr_apply = _sr_apply_if_requested(args, cfg)
+    fn = make_extract_fn(_backbone_apply(tr, cfg, args),
+                         degrade_to=_lr_degrade(args, cfg, sr_apply), sr_apply=sr_apply,
+                         **_extract_kw(tr, cfg))
+    res = evaluate_bin(args.bin, fn, cfg.eval.batch_size, cfg.model.input_size,
+                       cfg.eval.n_folds, cfg.eval.far_targets, device=tr.device)
+    print(json.dumps(_verification_json(res)), flush=True)
+    return 0
+
+
+def _read_ijbc_meta(path: str, root: str):
+    """'path template_id media_id subject_id' per line (shorter lines are
+    skipped) → (paths, template ids, media ids, subject ids)."""
+    import numpy as np
+
+    paths, tids, mids, sids = [], [], [], []
+    with open(path) as f:
+        for ln in f:
+            parts = ln.split()
+            if len(parts) < 4:
+                continue
+            paths.append(os.path.join(root, parts[0]))
+            tids.append(int(parts[1]))
+            mids.append(int(parts[2]))
+            sids.append(int(parts[3]))
+    return paths, np.asarray(tids), np.asarray(mids), np.asarray(sids)
+
+
+def _ijbc_1n_json(avg, r1, r2) -> dict:
+    import numpy as np
+
+    return {"rank1": avg.rank1, "cmc": np.asarray(avg.cmc).tolist(),
+            "tpir_at_fpir": avg.tpir_at_fpir, "rank1_g1": r1.rank1, "rank1_g2": r2.rank1}
+
+
+def cmd_eval_ijbc(args, overrides: list[str]) -> int:
+    """IJB-C: 1:1 (``--meta`` and ``--pairs`` of 't1 t2 label' lines) and/or
+    1:N (``--probe-meta``, ``--gallery-g1``, ``--gallery-g2``, meta lists
+    'path template_id media_id subject_id'; averaged over the two gallery
+    splits), or 1:N from pooled template embeddings (``--probe-tpl-npy``),
+    which needs no model."""
+    import numpy as np
+
+    from crfr_torch.eval.extract import make_extract_fn
+    from crfr_torch.eval.ijbc import ijbc_11, ijbc_1n_two_gallery, pool_meta
+
+    if args.probe_tpl_npy:
+        from crfr_torch.configs import get_config
+
+        cfg = get_config(args.preset, overrides)
+        res = ijbc_1n_two_gallery(
+            np.load(args.probe_tpl_npy), np.load(args.probe_subjects_npy),
+            np.load(args.g1_tpl_npy), np.load(args.g1_subjects_npy),
+            np.load(args.g2_tpl_npy), np.load(args.g2_subjects_npy),
+            fpir_targets=cfg.eval.fpir_targets, block=cfg.eval.gallery_block,
+            approx=_approx_flag(args), device=args.device)
+        print(json.dumps(_ijbc_1n_json(*res)), flush=True)
+        return 0
+
+    if not args.ckpt:
+        raise ValueError("eval-ijbc needs --ckpt (or the --probe-tpl-npy mode)")
+    tr, cfg = _embed_fn_from_ckpt(args, overrides)
+    fn = make_extract_fn(_backbone_apply(tr, cfg, args), **_extract_kw(tr, cfg))
+    out: dict = {}
+
+    def pooled(meta_path):
+        paths, tids, mids, sids = _read_ijbc_meta(meta_path, args.root)
+        return pool_meta(_embed_paths(paths, fn, cfg), tids, mids, sids, device=tr.device)
+
+    if args.meta and args.pairs:
+        paths, tids, mids, _ = _read_ijbc_meta(args.meta, args.root)
+        t1, t2, lab = [], [], []
+        with open(args.pairs) as f:
+            for ln in f:
+                parts = ln.split()
+                if len(parts) == 3:
+                    t1.append(int(parts[0]))
+                    t2.append(int(parts[1]))
+                    lab.append(int(parts[2]))
+        res = ijbc_11(_embed_paths(paths, fn, cfg), tids, mids, np.asarray(t1),
+                      np.asarray(t2), np.asarray(lab), device=tr.device)
+        out["tar_at_far"] = res.tar_at_far
+    if args.probe_meta and args.gallery_g1 and args.gallery_g2:
+        p_emb, p_subj, _ = pooled(args.probe_meta)
+        g1_emb, g1_subj, _ = pooled(args.gallery_g1)
+        g2_emb, g2_subj, _ = pooled(args.gallery_g2)
+        out.update(_ijbc_1n_json(*ijbc_1n_two_gallery(
+            p_emb, p_subj, g1_emb, g1_subj, g2_emb, g2_subj,
+            fpir_targets=cfg.eval.fpir_targets, block=cfg.eval.gallery_block,
+            approx=_approx_flag(args), device=tr.device)))
+    if not out:
+        print("eval-ijbc: nothing to do: pass --meta and --pairs (1:1) and/or "
+              "--probe-meta, --gallery-g1 and --gallery-g2 (1:N)", file=sys.stderr)
+        return 2
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def cmd_import_torch(args, overrides: list[str]) -> int:
+    """A face.evoLVe state dict → a ``train`` checkpoint (step 0) that every
+    eval, ``export`` and ``train --resume`` command restores."""
+    import torch
+
+    from crfr_torch.configs import get_config
+    from crfr_torch.train.checkpoints import Checkpointer
+    from crfr_torch.train.loop import Trainer
+    from crfr_torch.train.torch_import import load_face_evolve_state_dict
+
+    cfg = get_config(args.preset, overrides)
+    sd = torch.load(args.torch_ckpt, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    tr = Trainer(cfg, device=args.device)
+    load_face_evolve_state_dict(tr.model.backbone, sd)
+    ck = Checkpointer(args.out, keep=1)
+    ck.save(0, tr.state, cfg.to_json(), force=True)
+    ck.close()
+    print(json.dumps({"out": args.out, "keys": len(sd)}), flush=True)
+    return 0
+
+
+def cmd_export(args, overrides: list[str]) -> int:
+    """A checkpoint → a serving artifact (``serve.export_embed``) on the
+    trainer's device: optional degrade, hallucinator, flip-TTA and int8."""
+    from crfr_torch.serve import export_embed
+
+    tr, cfg = _embed_fn_from_ckpt(args, overrides)
+    sr_apply = _sr_apply_if_requested(args, cfg)
+    degrade = _lr_degrade(args, cfg, sr_apply)
+    # --int8 calibrates on seeded noise through the same front end, as crfr's export does
+    quantized = _quantized_backbone(tr, cfg, degrade_to=degrade) if args.int8 else None
+    meta = export_embed(tr, args.out, batch=args.batch, degrade_to=degrade,
+                        flip_tta=args.flip_tta, sr_apply=sr_apply, backbone_apply=quantized,
+                        quantized=bool(args.int8))
+    print(json.dumps(meta | {"out": args.out}), flush=True)
+    return 0
+
+
+def cmd_pack(args, overrides: list[str]) -> int:
+    from crfr_torch.data.records import pack_image_folder
+
+    if not args.out.endswith(".crfrpack"):
+        raise ValueError(f"{args.out}: crfr_torch writes .crfrpack records only; ArrayRecord "
+                         "files need the array_record package, which the port does not use")
+    if args.from_rec:
+        from crfr_torch.data.mxrec import convert_rec
+
+        n, c = convert_rec(args.from_rec, args.out, idx_path=args.idx or None)
+    elif args.root:
+        n, c = pack_image_folder(args.root, args.out, size=args.size)
+    else:
+        raise ValueError("pack needs --root (an identity folder tree) or --from-rec")
+    print(json.dumps({"images": n, "identities": c, "out": args.out}), flush=True)
+    return 0
+
+
+def cmd_serve_http(args, overrides: list[str]) -> int:
+    """The HTTP daemon (``serve_http.serve_artifact``) on an artifact of
+    ``export``, on the artifact's device, until interrupted."""
+    from crfr_torch.serve_http import serve_artifact
+
+    srv = serve_artifact(args.artifact, gallery_npz=args.gallery_npz, host=args.host,
+                         port=args.port, window_ms=args.window_ms,
+                         mutable=args.mutable_gallery, slab=args.gallery_slab)
+    host, port = srv.server_address[:2]
+    print(json.dumps({"serving": f"http://{host}:{port}", "artifact": args.artifact,
+                      "gallery": bool(args.gallery_npz), "mutable": args.mutable_gallery}),
+          flush=True)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.service.close()
+        srv.server_close()
+    return 0
+
+
+def _add_sr_args(p, help_ckpt: str) -> None:
+    """The frozen-hallucinator flags of every consumer of --sr-ckpt."""
+    p.add_argument("--sr-ckpt", default="", help=help_ckpt)
+    p.add_argument("--sr-scale", type=int, default=8)
+    p.add_argument("--sr-bicubic-skip", type=int, default=1,
+                   help="the G of --sr-ckpt was trained with the bicubic skip (1) or not (0)")
+
+
+def _add_approx_args(p) -> None:
+    p.add_argument("--approx", action="store_true",
+                   help="accepted; the selection stays exact (eval/identification.py)")
+    p.add_argument("--approx-recall", type=float, default=0.0,
+                   help="accepted, implies --approx; the selection stays exact")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -571,11 +932,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--max-steps", type=int, default=0,
                    help="stop at this global step (0: 1000 steps from the start)")
     p.add_argument("--resume", action="store_true")
-    p.add_argument("--sr-ckpt", default="",
-                   help="hallucinator checkpoint (of train-sr): the student consumes G(lr)")
-    p.add_argument("--sr-scale", type=int, default=8)
-    p.add_argument("--sr-bicubic-skip", type=int, default=1,
-                   help="the G of --sr-ckpt was trained with the bicubic skip (1) or not (0)")
+    _add_sr_args(p, "hallucinator checkpoint (of train-sr): the student consumes G(lr)")
     p.add_argument("--sr-finetune", action="store_true",
                    help="fine-tune G jointly with the student (needs --sr-ckpt); G's state "
                         "checkpoints with the student")
@@ -630,18 +987,129 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--k", type=int, default=5)
     p.add_argument("--int8", action="store_true",
                    help="embed the probes through the int8 backbone")
-    p.add_argument("--approx", action="store_true",
-                   help="accepted; the selection stays exact (eval/identification.py)")
-    p.add_argument("--approx-recall", type=float, default=0.0,
-                   help="accepted, implies --approx; the selection stays exact")
-    p.add_argument("--sr-ckpt", default="",
-                   help="route probe images through this hallucinator (of train-sr)")
-    p.add_argument("--sr-scale", type=int, default=8)
-    p.add_argument("--sr-bicubic-skip", type=int, default=1,
-                   help="the G of --sr-ckpt was trained with the bicubic skip (1) or not (0)")
+    _add_approx_args(p)
+    _add_sr_args(p, "route probe images through this hallucinator (of train-sr)")
     p.add_argument("--preset", default="casia_arcface")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_match)
+
+    p = sub.add_parser("eval-verification", help="LFW-style 1:1 verification of a pairs list")
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--pairs", required=True, help="LFW pairs.txt")
+    p.add_argument("--lfw-root", required=True)
+    p.add_argument("--preset", default="lfw_ir50_16px")
+    p.add_argument("--degrade", type=int, default=0,
+                   help="probe degradation size (0: the config's eval_degrade_size)")
+    p.add_argument("--degrade-side", default="second", choices=("first", "second", "both"))
+    _add_sr_args(p, "route the degraded side through this hallucinator (of train-sr)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_eval_verification)
+
+    p = sub.add_parser("eval-scface", help="SCface closed-set identification")
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--gallery", required=True, help="directory of <id>_frontal.* mugshots")
+    p.add_argument("--probes", required=True, help="directory of <id>_cam<k>_<d>.* shots")
+    p.add_argument("--distance", type=int, default=1, choices=(1, 2, 3))
+    p.add_argument("--preset", default="scface")
+    _add_sr_args(p, "route the probes through this hallucinator (of train-sr)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_eval_scface)
+
+    p = sub.add_parser("eval-openset", help="open-set identification (TinyFace, SurvFace)")
+    p.add_argument("--ckpt", default="", help="recognition checkpoint (image-list mode)")
+    p.add_argument("--gallery-list", default="")
+    p.add_argument("--mated-list", default="")
+    p.add_argument("--unmated-list", default="")
+    p.add_argument("--root", default="")
+    p.add_argument("--degrade", type=int, default=0,
+                   help="probe degradation size (0: the config's eval_degrade_size)")
+    p.add_argument("--max-rank", type=int, default=20, help="CMC depth")
+    _add_sr_args(p, "route the probes through this hallucinator (of train-sr)")
+    p.add_argument("--probe-npy", default="",
+                   help="precomputed probe embeddings .npy (no --ckpt)")
+    p.add_argument("--probe-labels-npy", default="")
+    p.add_argument("--gallery-npy", default="", help="float .npy or int8 .npz gallery")
+    p.add_argument("--gallery-labels-npy", default="")
+    p.add_argument("--mated-npy", default="", help="bool .npy: the probe is enrolled")
+    _add_approx_args(p)
+    p.add_argument("--preset", default="tinyface_survface")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_eval_openset)
+
+    p = sub.add_parser("eval-bin", help="verification on an insightface .bin set")
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--bin", required=True)
+    p.add_argument("--degrade", type=int, default=0,
+                   help="degradation size (0: the config's eval_degrade_size)")
+    p.add_argument("--preset", default="lfw_ir50_16px")
+    _add_sr_args(p, "route the degraded images through this hallucinator (of train-sr)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_eval_bin)
+
+    p = sub.add_parser("eval-ijbc", help="IJB-C 1:1 and 1:N")
+    p.add_argument("--ckpt", default="", help="recognition checkpoint (meta mode)")
+    p.add_argument("--meta", default="", help="1:1 image meta list")
+    p.add_argument("--pairs", default="", help="1:1 't1 t2 label' lines")
+    p.add_argument("--probe-meta", default="", help="1:N probe meta list")
+    p.add_argument("--gallery-g1", default="", help="1:N gallery split 1")
+    p.add_argument("--gallery-g2", default="", help="1:N gallery split 2")
+    p.add_argument("--root", default="")
+    p.add_argument("--probe-tpl-npy", default="",
+                   help="precomputed pooled probe templates .npy (1:N, no --ckpt)")
+    p.add_argument("--probe-subjects-npy", default="")
+    p.add_argument("--g1-tpl-npy", default="")
+    p.add_argument("--g1-subjects-npy", default="")
+    p.add_argument("--g2-tpl-npy", default="")
+    p.add_argument("--g2-subjects-npy", default="")
+    p.add_argument("--preset", default="ms1m_ijbc")
+    _add_approx_args(p)
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_eval_ijbc)
+
+    p = sub.add_parser("import-torch", help="a face.evoLVe state dict into a checkpoint")
+    p.add_argument("--torch-ckpt", required=True)
+    p.add_argument("--out", required=True, help="checkpoint directory to write")
+    p.add_argument("--preset", default="casia_arcface")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_import_torch)
+
+    p = sub.add_parser("export", help="a checkpoint into a serving artifact")
+    p.add_argument("--ckpt", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--batch", type=int, default=256, help="the artifact's static batch")
+    p.add_argument("--degrade", type=int, default=0,
+                   help="degradation size (0: the config's eval_degrade_size)")
+    p.add_argument("--flip-tta", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="export the int8 backbone, calibrated on seeded noise")
+    _add_sr_args(p, "put this hallucinator (of train-sr) in front of the backbone")
+    p.add_argument("--preset", default="casia_arcface")
+    p.add_argument("--device", default="cuda",
+                   help="the artifact's device: cuda (default) or cpu")
+    p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("pack", help="an image folder tree or an MXNet .rec into .crfrpack")
+    p.add_argument("--root", default="", help="identity folder tree to pack")
+    p.add_argument("--out", required=True, help="a .crfrpack path")
+    p.add_argument("--size", type=int, default=112)
+    p.add_argument("--from-rec", default="",
+                   help="convert an MXNet .rec (insightface layout)")
+    p.add_argument("--idx", default="", help=".idx path (default: beside --from-rec)")
+    p.set_defaults(fn=cmd_pack)
+
+    p = sub.add_parser("serve-http", help="the HTTP daemon on a serving artifact")
+    p.add_argument("--artifact", required=True, help="a serving artifact of export")
+    p.add_argument("--gallery-npz", default="",
+                   help="int8 bank (extract --quantize-bank) for /match")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8321)
+    p.add_argument("--window-ms", type=float, default=2.0, help="request-coalescing window")
+    p.add_argument("--mutable-gallery", action="store_true",
+                   help="serve the bank as a ServingBank: /enroll, /remove, /gallery")
+    p.add_argument("--gallery-slab", type=int, default=0,
+                   help="capacity rounding slab of --mutable-gallery "
+                        "(default ServingBank.SLAB=65536)")
+    p.set_defaults(fn=cmd_serve_http)
 
     args, extra = ap.parse_known_args(argv)
     overrides, unknown = _split_overrides(extra)

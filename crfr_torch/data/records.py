@@ -15,6 +15,8 @@ which the port does not use: opening one raises, naming it.
 ``pack_aligned_list`` packs a landmarked list into aligned records: each
 image decoded with PIL, aligned on the device (``ops.warp.align_faces``),
 written by ``write_pack`` (``crfr``'s default writer is ArrayRecord's).
+``pack_image_folder`` packs an identity folder tree the same way, resized
+with PIL.
 """
 
 from __future__ import annotations
@@ -150,14 +152,15 @@ class SubsetSource:
 def open_source(path: str):
     """A random-access (label, image) source for ``path``: ``.crfrpack``
     (or any other name) is read here; ``.array_record`` and MXNet ``.rec``
-    are not ported and raise."""
+    raise (``data.mxrec.convert_rec`` converts a ``.rec``)."""
     if path.endswith((".array_record", ".arrayrecord")):
         raise NotImplementedError(
             f"{path}: ArrayRecord files need the array_record package, which crfr_torch "
             "does not use; convert to .crfrpack (crfr.data.records.write_pack)")
     if path.endswith(".rec"):
-        raise NotImplementedError(f"{path}: MXNet .rec reading (crfr/data/mxrec.py) is not "
-                                  "ported yet; convert to .crfrpack")
+        raise NotImplementedError(f"{path}: training does not read an MXNet .rec in place "
+                                  "yet; convert it to .crfrpack with python -m crfr_torch "
+                                  "pack --from-rec (data.mxrec.convert_rec)")
     return PackSource(path)
 
 
@@ -191,3 +194,32 @@ def pack_aligned_list(list_file: str, out_path: str, root: str = "", out_size: i
                 yield int(parts[1]), align_faces(img, lm, out_size, device=dev)[0].cpu().numpy()
 
     return writer(out_path, gen())
+
+
+def pack_image_folder(root: str, out_path: str, size: int | None = 112,
+                      writer: Callable = write_pack) -> tuple[int, int]:
+    """Pack an identity folder tree (``root/<identity>/<image>``) into raw
+    records, each image decoded with PIL and bicubic-resized to ``size``²
+    where it differs; files PIL cannot open are skipped. Labels are the
+    folders in sorted order. Returns (images, identities)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("pack_image_folder decodes images with PIL (the pillow package), "
+                          "which is not installed") from e
+    classes = sorted(d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d)))
+    idx = {c: i for i, c in enumerate(classes)}
+
+    def gen() -> Iterator[tuple[int, np.ndarray]]:
+        for c in classes:
+            d = os.path.join(root, c)
+            for name in sorted(os.listdir(d)):
+                try:
+                    img = Image.open(os.path.join(d, name)).convert("RGB")
+                except OSError:
+                    continue
+                if size is not None and img.size != (size, size):
+                    img = img.resize((size, size), Image.BICUBIC)
+                yield idx[c], np.asarray(img, np.uint8)
+
+    return writer(out_path, gen()), len(classes)

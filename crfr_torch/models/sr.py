@@ -53,11 +53,20 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=16)
-def _up_matrix(s_in: int, s_out: int, mode: str, device: torch.device) -> torch.Tensor:
+def _cached_up_matrix(s_in: int, s_out: int, mode: str, device: torch.device) -> torch.Tensor:
     # a normal tensor even when first built under inference_mode (extraction):
     # a later call may need it saved for backward
     with torch.inference_mode(False):
         return torch.from_numpy(resize_matrix(s_in, s_out, mode)).to(device)
+
+
+def _up_matrix(s_in: int, s_out: int, mode: str, device: torch.device) -> torch.Tensor:
+    """The bicubic ↑ operator on ``device``, cached; built afresh while a
+    program is traced (``torch.export``), where a new tensor is a fake one
+    that must not enter the cache."""
+    if torch.compiler.is_compiling():
+        return torch.from_numpy(resize_matrix(s_in, s_out, mode)).to(device)
+    return _cached_up_matrix(s_in, s_out, mode, device)
 
 
 class ConvBlock(nn.Module):

@@ -1,4 +1,7 @@
-"""Preprocessing ops and the hand-written CUDA kernels behind them."""
+"""Preprocessing ops and the hand-written CUDA kernels behind them. Importing
+the package registers the custom ops of ``fused_preprocess``."""
+
+from crfr_torch.ops import fused_preprocess  # noqa: F401
 
 from crfr_torch.ops.similarity import (  # noqa: F401
     REFERENCE_LANDMARKS_112,

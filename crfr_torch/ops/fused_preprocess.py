@@ -15,6 +15,15 @@ band tables (``band_table``): a degrade goes down along H, down along W, up
 along W, up along H; a resize along W, then along H. Each function counts its
 kernel launches in its ``launches`` attribute.
 
+The degrade with one low and the resize are custom ops,
+``torch.ops.crfr_torch.fused_degrade_normalize(x, low, mode, out_dtype)`` and
+``torch.ops.crfr_torch.fused_resize_normalize(x, out_hw, mode, out_dtype)``,
+each with a CPU body (the plain version), a CUDA body (the launch, which
+counts it) and a fake body (the output's shape and dtype). ``torch.export``
+records each as one node, so a loaded program (``crfr_torch.serve``) runs
+and counts the kernel; importing ``crfr_torch.ops`` registers them. Eager
+calls of the public functions run the same bodies directly.
+
 ``fused_degrade_normalize`` also takes ``low`` as an int32 tensor of shape
 (B,): a low per image, as the training step draws them. The kernel then
 reads each image's low and takes that low's four band tables from a device
@@ -398,24 +407,50 @@ def fused_degrade_normalize(x: torch.Tensor, low, mode: str = "pil",
     ``low``, back up to S) and normalized (B, S, S, C) ``out_dtype``.
     ``low`` is an int, or an int32 (B,) tensor on ``x``'s device holding
     each image's low, every one in ``lows`` = (first, last) (1 ... S when
-    None); on the card an image whose low lies outside comes out NaN."""
+    None); on the card an image whose low lies outside comes out NaN.
+    With an int ``low``, a traced call (``torch.export``) is one node of the
+    op ``crfr_torch::fused_degrade_normalize``; an eager one runs the op's
+    body for its device without the dispatcher, which costs the host about
+    as much again as the launch (PERF.md §6)."""
     s = _square(x)
+    if not isinstance(low, torch.Tensor):
+        if torch.compiler.is_compiling():
+            return torch.ops.crfr_torch.fused_degrade_normalize(x, int(low), mode, out_dtype)
+        if x.device.type == "cpu":
+            return fused_degrade_normalize_reference(x, low, mode, out_dtype)
+        return _degrade_cuda(x, int(low), mode, out_dtype)
     if x.device.type == "cpu":
         return fused_degrade_normalize_reference(x, low, mode, out_dtype, lows)
-    if isinstance(low, torch.Tensor):
-        _check_lows(x, low)
-        out = _launch(x, lows_key(s, lows, mode), s, s, out_dtype, "fused_degrade_normalize",
-                      low=low.contiguous())
-        fused_degrade_normalize.lows_launches += 1
-    else:
-        out = _launch(x, operator_key(s, s, low, mode), s, s, out_dtype,
-                      "fused_degrade_normalize")
-        fused_degrade_normalize.launches += 1
+    _check_lows(x, low)
+    out = _launch(x, lows_key(s, lows, mode), s, s, out_dtype, "fused_degrade_normalize",
+                  low=low.contiguous())
+    fused_degrade_normalize.lows_launches += 1
     return out
 
 
 fused_degrade_normalize.launches = 0        # the launches with one low (an int)
 fused_degrade_normalize.lows_launches = 0   # the launches with a low per image
+
+
+@torch.library.custom_op("crfr_torch::fused_degrade_normalize", mutates_args=(),
+                         device_types="cpu")
+def _degrade_op(x: torch.Tensor, low: int, mode: str, out_dtype: torch.dtype) -> torch.Tensor:
+    """The op's body for a CPU tensor: the plain version."""
+    return fused_degrade_normalize_reference(x, low, mode, out_dtype)
+
+
+@_degrade_op.register_kernel("cuda")
+def _degrade_cuda(x: torch.Tensor, low: int, mode: str, out_dtype: torch.dtype) -> torch.Tensor:
+    """The op's body for a CUDA tensor: one launch of the kernel, counted."""
+    s = x.shape[1]
+    out = _launch(x, operator_key(s, s, low, mode), s, s, out_dtype, "fused_degrade_normalize")
+    fused_degrade_normalize.launches += 1
+    return out
+
+
+@_degrade_op.register_fake
+def _degrade_fake(x: torch.Tensor, low: int, mode: str, out_dtype: torch.dtype) -> torch.Tensor:
+    return x.new_empty(x.shape, dtype=out_dtype)
 
 
 def fused_resize_normalize_reference(x: torch.Tensor, out_hw: tuple[int, int],
@@ -433,16 +468,43 @@ def fused_resize_normalize(x: torch.Tensor, out_hw: tuple[int, int],
                            mode: str = "pil",
                            out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """(B, H, W, C) raw pixels → bicubic-resized to ``out_hw`` and normalized
-    (B, oh, ow, C) ``out_dtype``: the serving-ingest resize."""
+    (B, oh, ow, C) ``out_dtype``: the serving-ingest resize. A traced call
+    is one node of the op ``crfr_torch::fused_resize_normalize``; an eager
+    one runs the op's body for its device, as ``fused_degrade_normalize``."""
     _check_input(x)
-    _, h, w, _ = x.shape
     oh, ow = out_hw
+    if torch.compiler.is_compiling():
+        return torch.ops.crfr_torch.fused_resize_normalize(x, [int(oh), int(ow)], mode, out_dtype)
     if x.device.type == "cpu":
         return fused_resize_normalize_reference(x, out_hw, mode, out_dtype)
+    return _resize_cuda(x, [int(oh), int(ow)], mode, out_dtype)
+
+
+fused_resize_normalize.launches = 0
+
+
+@torch.library.custom_op("crfr_torch::fused_resize_normalize", mutates_args=(),
+                         device_types="cpu")
+def _resize_op(x: torch.Tensor, out_hw: list[int], mode: str,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """The op's body for a CPU tensor: the plain version."""
+    return fused_resize_normalize_reference(x, tuple(out_hw), mode, out_dtype)
+
+
+@_resize_op.register_kernel("cuda")
+def _resize_cuda(x: torch.Tensor, out_hw: list[int], mode: str,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    """The op's body for a CUDA tensor: one launch of the kernel, counted."""
+    _, h, w, _ = x.shape
+    oh, ow = out_hw
     out = _launch(x, operator_key(h, w, (oh, ow), mode), oh, ow, out_dtype,
                   "fused_resize_normalize")
     fused_resize_normalize.launches += 1
     return out
 
 
-fused_resize_normalize.launches = 0
+@_resize_op.register_fake
+def _resize_fake(x: torch.Tensor, out_hw: list[int], mode: str,
+                 out_dtype: torch.dtype) -> torch.Tensor:
+    b, _, _, c = x.shape
+    return x.new_empty((b, out_hw[0], out_hw[1], c), dtype=out_dtype)

@@ -1,5 +1,6 @@
 """HTTP serving daemon for an embed function and an int8 gallery bank
-(crfr/serve_http.py).
+(crfr/serve_http.py). ``serve_artifact`` serves a ``crfr_torch.serve``
+artifact (``python -m crfr_torch serve-http --artifact``).
 
 - ``GET  /healthz``      → JSON: ``meta``, gallery size, ``mutable``,
                            dispatch count.
@@ -319,3 +320,34 @@ def make_server(fn: Callable, meta: dict, host: str = "127.0.0.1",
     srv = ThreadingHTTPServer((host, port), Handler)
     srv.service = service                        # type: ignore[attr-defined]
     return srv
+
+
+def serve_artifact(artifact: str, gallery_npz: str = "", host: str = "127.0.0.1",
+                   port: int = 0, window_ms: float = 2.0, mutable: bool = False,
+                   slab: int = 0) -> ThreadingHTTPServer:
+    """Load a serving artifact (``serve.load_embed``) and, optionally, an
+    int8 ``.npz`` bank, and return a ready (not started) server on the
+    artifact's device (its ``platforms``).
+
+    The bank is uploaded to that device (a host bank would be uploaded on
+    every match). ``mutable=True`` serves it as a ``ServingBank`` (online
+    ``/enroll`` and ``/remove``); without a ``gallery_npz`` it starts empty
+    at the artifact's ``embedding_dim``. ``slab`` overrides the capacity's
+    rounding slab (``ServingBank.SLAB`` when 0)."""
+    from crfr_torch.eval.bank import ServingBank, load_bank
+    from crfr_torch.serve import load_embed
+
+    fn = load_embed(artifact)
+    device = resolve_device(fn.meta["platforms"][0])
+    bank = None
+    if gallery_npz:
+        host_bank = load_bank(gallery_npz)
+        bank = (ServingBank.from_bank(host_bank, slab=slab, device=device) if mutable
+                else host_bank.to_device(device))
+    elif mutable:
+        d = int(fn.meta.get("embedding_dim", 512))
+        empty = QuantBank(q=np.zeros((0, d), np.int8), scale=np.zeros(0, np.float32),
+                          labels=np.zeros(0, np.int64))
+        bank = ServingBank.from_bank(empty, slab=slab, device=device)
+    return make_server(fn, fn.meta, host=host, port=port, bank=bank, window_ms=window_ms,
+                       device=device)

@@ -385,6 +385,7 @@ def sr_apply_from_state(generator: Hallucinator, trainable: bool = False) -> Cal
         with torch.set_grad_enabled(trainable and torch.is_grad_enabled()):
             return g(lr_norm)[0]
 
+    f.module = g              # the snapshot itself, for serve.export_embed
     return f
 
 
