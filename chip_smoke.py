@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of crfr_torch on one CUDA card: kernels, embed, verify,
-gallery, serve, train, the train CLI, SR training, hallucinated
+gallery, serve, train, the train CLI, in-loop eval, a recycled run, the
+soak, the schedule soak, debug and profiling, the roofline, SR training, hallucinated
 extraction, the SR CLI, residual KD, the KD CLI, the int8 embed path, the
 int8 serving CLI, the headline experiment, detection, recognition from a
 photo, MobileFaceNet, the serving artifact, the artifact daemon in this
@@ -86,6 +87,44 @@ Phases, each printing one JSON line:
    then ``--resume`` to 9 (it must resume at 6 and end with
    ``{"final_step": 9}``); a trainer restored from step 6 equals the saved
    state bit for bit (parameters, BN statistics, momentum buffers, step);
+8a. train_eval: ``train --eval-bin`` in this process (phase 8's cut: 64
+   classes, batch 64) from a ``.crfrpack`` of ``bench/soak.py``'s
+   ``_build_pack`` and a 600-pair ``.bin`` of its ``_build_eval_bin``, 6
+   steps, an eval every 3 degraded to 16 px: eval lines at 3 and 6, the
+   per-image kernel once a step, kernel 1 once an eval batch (counted from 0
+   just before the command); ``eval-bin --ckpt`` on the step-6 checkpoint
+   equal to the in-loop eval of step 6. The ``.bin`` holds 600 pairs of
+   hard renders (``soak._build_eval_bin``'s synthetic pairs are separable
+   at init: accuracy 1.0, EER 0 at every step). Without PIL it prints
+   ``"run": false``;
+8b. recycle: ``python -m crfr_torch train --max-steps 9 --recycle-every-steps
+   3`` in a child: recycles at (3, 1) and (6, 2), both resumes in its
+   stderr, ``{"final_step": 9}``, steps 1..9 logged once each; two
+   straight 9-step runs in this process: the chain equal to the first bit
+   for bit, or (cuDNN's backward not being deterministic) no further from
+   it than the second is; both maxima printed;
+8c. soak: ``bench.soak.run_soak`` at IR-50, batch 256, 112², 120 steps on a
+   pack of 200 × 40 images, an eval and a checkpoint at step 100: the fit,
+   step-only, host-pipeline and pinned-copy rates, ``fit_over_step``, the
+   first step's seconds, peak memory, the seconds of the eval and the
+   checkpoint inside the window, the loop thread's ms a step in the feed,
+   and the device's idle share over ten traced steps of the fit loop and
+   of the step alone; launches counted around it (kernel 1′ 197: 120
+   steps, the step-only ceiling's 31, the traced windows' 46; kernel 1
+   six: one eval);
+8d. schedule_soak: ``python -m crfr_torch.bench.schedule_soak --smoke
+   --device cuda`` in a child: exit 0, two recycles, a stream with no gap
+   to step 48, warmup and drops as configured; its wall seconds;
+8e. debug (run between recycle and soak): ``no_host_transfers`` makes
+   ``.item()`` and ``.cpu()`` of a CUDA tensor raise and lets them pass
+   after; ``debug_mode(nans=True)`` raises on a CUDA ``log`` of a negative
+   value naming the op; ``profiling.trace`` writes a trace with an
+   ``annotate`` span and kernels; ``timed``;
+8f. roofline: the embed phase's ms a batch against
+   ``summarize(ir_layer_bounds("50", 256, 112))`` (attainment), and a traced
+   train step at batch 512 (``xprof_check.trace_train``, 3 steps) with
+   crfr's roofline keys and each group's time against
+   ``train_step_bounds`` (BN and PReLU by bytes, convs by FLOPs);
 9. sr_train: ``SRTrainer`` on the casia_arcface preset at scale 8 with 16
    priors, full width (G: width 64, 3 coarse ResBlocks, a depth-3
    hourglass, 8 ResBlocks; D: width 64, 4 downs), float32, at batch
@@ -1044,6 +1083,266 @@ def phase_cli() -> dict:
     return {"phase": "cli", "final_steps": [f["final_step"] for f in finals],
             "resumed_from": 6, "checkpoints": steps, "restored_equals_saved": True,
             "wall_s_two_runs": wall}
+
+
+CLI_OV = ["data.num_classes=64", "train.batch_size=64"]     # phase_cli's cut of the preset
+
+
+def _cli_json(argv: list[str]) -> tuple[dict, str]:
+    """``crfr_torch.cli.main(argv)`` in this process: its last JSON line and
+    all it printed (the metrics lines)."""
+    import contextlib
+
+    from crfr_torch.cli import main as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli(argv)
+    if rc != 0:
+        raise AssertionError(f"{argv[0]}: exit {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), out.getvalue()
+
+
+def phase_train_eval(fp) -> dict:
+    """``train --eval-bin`` in this process on a ``.crfrpack`` of
+    ``soak._build_pack`` and a ``.bin`` of 600 hard-rendered pairs
+    (``RenderedIdentities``: ``soak._build_eval_bin``'s synthetic pairs
+    read accuracy 1.0 and EER 0 at any step, which would make the equality
+    below vacuous), 6 steps with an eval every 3 degraded to 16 px: eval lines at
+    steps 3 and 6, kernel 1′ once a step and kernel 1 once an eval batch
+    (counted from 0 just before the command, read just after); then
+    ``eval-bin --ckpt`` on the step-6 checkpoint equals the in-loop eval of
+    step 6."""
+    try:
+        from PIL import Image  # noqa: F401
+    except ImportError:
+        return {"phase": "train_eval", "run": False, "why": "PIL not installed"}
+    from crfr_torch.bench.soak import _build_pack
+    from crfr_torch.configs import get_config
+    from crfr_torch.data.bins import save_bin
+    from crfr_torch.data.render import RenderedIdentities
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _build_pack(f"{tmp}/train.crfrpack", 64, 8, S)
+        i1, i2, same = RenderedIdentities(64, S, seed=7).eval_pairs(   # 300 + 300 pairs
+            np.random.default_rng(7), 300)
+        save_bin(f"{tmp}/pairs.bin", i1.astype(np.uint8), i2.astype(np.uint8), same)
+        fixtures_s = time.perf_counter() - t0
+        argv = ["train", "--preset", "casia_arcface", *CLI_OV, "--train-records",
+                f"{tmp}/train.crfrpack", "--eval-bin", f"{tmp}/pairs.bin", "--max-steps", "6",
+                "train.eval_every_steps=3", "train.checkpoint_every_steps=3",
+                f"data.eval_degrade_size={LOW}", f"train.checkpoint_dir={tmp}/ck"]
+        _zero_counts(fp)
+        t0 = time.perf_counter()
+        final, printed = _cli_json(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts(fp)
+        rows = [json.loads(r) for r in printed.splitlines() if r.startswith('{"step"')]
+        evals = {r["step"]: r for r in rows if "eval_accuracy" in r}
+        eval_b = min(get_config("casia_arcface").eval.batch_size, 600)
+        per_eval = 2 * -(-600 // eval_b)                     # both sides of the pairs
+        want = {"fused_degrade_normalize": 2 * per_eval, LOWS_NAME: 6,
+                "fused_resize_normalize": 0}
+        if final != {"final_step": 6} or sorted(evals) != [3, 6] or launches != want:
+            raise AssertionError(f"train_eval: {final}, eval steps {sorted(evals)}, "
+                                 f"launches {launches}, want {want}")
+        again, _ = _cli_json(["eval-bin", "--ckpt", f"{tmp}/ck", "--bin", f"{tmp}/pairs.bin"])
+        got = (evals[6]["eval_accuracy"], evals[6]["eval_eer"])
+        if (again["accuracy"], again["eer"]) != got:
+            raise AssertionError(f"train_eval: in-loop step 6 {got} != eval-bin --ckpt "
+                                 f"{(again['accuracy'], again['eer'])}")
+    return {"phase": "train_eval", "run": True, "launches": launches,
+            "eval_batches_per_eval": per_eval,
+            "evals": {s: [r["eval_accuracy"], r["eval_eer"]] for s, r in evals.items()},
+            "eval_bin_of_step_6": [again["accuracy"], again["eer"]],
+            "in_loop_equals_eval_bin": True, "wall_s": wall, "fixtures_s": fixtures_s}
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    return max((v.float() - b["model"][k].float()).abs().max().item()
+               for k, v in a["model"].items())
+
+
+def phase_recycle() -> dict:
+    """``python -m crfr_torch train --max-steps 9 --recycle-every-steps 3`` in
+    a child: recycles at (3, 1) and (6, 2), "resumed from step 3" and "... 6"
+    in its stderr, ``{"final_step": 9}``, steps 1..9 logged once each; then
+    two straight 9-step runs in this process. The chain's final state equals
+    the first's bit for bit, or is no further from it than the second
+    straight run is (cuDNN's backward may not be deterministic); both maxima
+    printed."""
+    from crfr_torch.train.checkpoints import Checkpointer
+
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ["train", "--preset", "casia_arcface", *CLI_OV, "--max-steps", "9",
+                "train.checkpoint_every_steps=100", "train.log_every=1"]
+        env = _child_env()
+        env.pop("CRFR_RECYCLE_GEN", None)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "crfr_torch", *base, "--recycle-every-steps",
+                            "3", f"train.checkpoint_dir={tmp}/chain"], cwd=root, env=env,
+                           capture_output=True, text=True, timeout=600)
+        chain_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"recycle: exit {r.returncode}\n{r.stderr[-4000:]}")
+        recs = [json.loads(line) for line in open(f"{tmp}/chain/recycles.jsonl")]
+        steps = [json.loads(line)["step"] for line in open(f"{tmp}/chain/metrics.jsonl")
+                 if '"loss"' in line]
+        final = json.loads(r.stdout.strip().splitlines()[-1])
+        if ([(x["step"], x["gen"]) for x in recs] != [(3, 1), (6, 2)]
+                or "resumed from step 3" not in r.stderr or "resumed from step 6" not in r.stderr
+                or final != {"final_step": 9} or steps != list(range(1, 10))):
+            raise AssertionError(f"recycle: records {recs}, final {final}, steps {steps}, "
+                                 f"stderr {r.stderr[-1500:]}")
+        chain = Checkpointer(f"{tmp}/chain").restore(step=9)
+        straight = []
+        for run in ("a", "b"):
+            _cli_json([*base, f"train.checkpoint_dir={tmp}/{run}"])
+            straight.append(Checkpointer(f"{tmp}/{run}").restore(step=9))
+        bitwise = _state_equal(chain, straight[0])
+        chain_vs_straight = _max_diff(chain, straight[0])
+        straight_vs_straight = _max_diff(straight[0], straight[1])
+        if not bitwise and chain_vs_straight > straight_vs_straight:
+            raise AssertionError(f"recycle: the chain is {chain_vs_straight} from a straight "
+                                 f"run, two straight runs {straight_vs_straight} apart")
+    return {"phase": "recycle", "records": recs, "final_step": 9, "generations": 3,
+            "chain_equals_straight_bitwise": bitwise,
+            "chain_vs_straight_max_abs": chain_vs_straight,
+            "straight_vs_straight_max_abs": straight_vs_straight,
+            "max_cuda_mb": [x.get("max_cuda_mb") for x in recs], "chain_wall_s": chain_s}
+
+
+def phase_soak(fp) -> dict:
+    """``bench.soak`` at IR-50, batch 256, 112², 120 steps of the production
+    path on a 200 × 40-image pack, an eval and a checkpoint at step 100; the
+    kernel launches of the whole soak counted from 0 just before it (kernel
+    1′ once a train step: the soak's 120, the step-only ceiling's 31 and
+    the two traced windows' 46; kernel 1 once an eval batch: six)."""
+    from crfr_torch.bench import soak
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = soak.parse_args(["--steps", "120", "--warm-steps", "20", "--batch", "256",
+                                "--classes", "200", "--per-class", "40", "--eval-every", "100",
+                                "--ckpt-every", "100", "--workdir", tmp])
+        _zero_counts(fp)
+        t0 = time.perf_counter()
+        out = soak.run_soak(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts(fp)
+    # 120 soak steps, the step-only ceiling's 1 + 30, and the traced windows'
+    # 2 × (3 + 10 + 10); one eval: both sides of 600 pairs at batch 256
+    want = {"fused_degrade_normalize": 2 * -(-600 // 256), LOWS_NAME: 120 + 31 + 46,
+            "fused_resize_normalize": 0}
+    if launches != want or len(out["eval_accuracy"]) != 1 or not np.isfinite(out["final_loss"]):
+        raise AssertionError(f"soak: launches {launches}, want {want}; {out}")
+    out.pop("workdir")
+    return {"phase": "soak", **out, "launches": launches, "wall_s": wall}
+
+
+def phase_schedule_soak() -> dict:
+    """``python -m crfr_torch.bench.schedule_soak --smoke --device cuda`` in a
+    child (its ``train`` child recycles twice): exit 0, recycles at (20, 1)
+    and (40, 2), a stream with no gap ending at step 48, the warmup and both
+    drops as configured, and ``analyze``'s keys."""
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "crfr_torch.bench.schedule_soak", "--smoke",
+                            "--device", "cuda", "--workdir", tmp], cwd=root, env=_child_env(),
+                           capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"schedule_soak: exit {r.returncode}\n{r.stderr[-4000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    keys = {"steps_logged", "final_step", "expected_final_step", "continuity_gaps",
+            "warmup_ok", "drops", "loss_per_epoch", "eval_trajectory", "recycles", "bn_drift"}
+    if (not keys <= set(res) or [(x["step"], x["gen"]) for x in res["recycles"]]
+            != [(20, 1), (40, 2)] or res["continuity_gaps"] or res["final_step"] != 48
+            or not res["warmup_ok"] or not all(d["lr_ok"] for d in res["drops"])):
+        raise AssertionError(f"schedule_soak: {res}")
+    return {"phase": "schedule_soak", "wall_s": wall, **res}
+
+
+def phase_debug() -> dict:
+    """``utils.debug`` and ``utils.profiling`` on the card: inside
+    ``no_host_transfers`` ``.item()`` and ``.cpu()`` of a CUDA tensor raise,
+    after it they work; ``debug_mode(nans=True)`` raises on a CUDA ``log`` of
+    a negative value, naming the op; ``trace`` writes a trace holding the
+    ``annotate`` span and a kernel; ``timed`` fences a CUDA result."""
+    from crfr_torch.utils import profiling
+    from crfr_torch.utils.debug import debug_mode, no_host_transfers
+
+    t = torch.arange(4.0, device="cuda")
+    raised = []
+    for name, fn in (("item", lambda: t.sum().item()), ("cpu", lambda: t.cpu())):
+        try:
+            with no_host_transfers():
+                fn()
+        except RuntimeError as e:
+            raised.append((name, str(e).splitlines()[0][:80]))
+    after = (t.sum().item(), t.cpu().tolist())
+    if [n for n, _ in raised] != ["item", "cpu"] or after != (6.0, [0.0, 1.0, 2.0, 3.0]):
+        raise AssertionError(f"debug: no_host_transfers raised {raised}, after {after}")
+    try:
+        with debug_mode(nans=True):
+            torch.log(torch.tensor([-1.0], device="cuda"))
+        nan_error = None
+    except FloatingPointError as e:
+        nan_error = str(e)
+    if not nan_error or "aten.log" not in nan_error:
+        raise AssertionError(f"debug: debug_mode(nans=True) gave {nan_error!r}")
+    # A trace of two small kernels taken after other profiler sessions in
+    # this process (the soak's) held no kernel events, where the first
+    # session of a process holds them: so this phase runs before the soak,
+    # on 20 products of 1024² matrices
+    a = torch.randn(1024, 1024, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as prof:
+            with profiling.annotate("crfr_smoke_span"):
+                for _ in range(20):
+                    a = (a @ a).tanh()
+                torch.cuda.synchronize()
+        events = json.load(open(prof.trace_path))["traceEvents"]
+    span = any(e.get("name") == "crfr_smoke_span" for e in events)
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    sec, _ = profiling.timed(lambda: torch.randn(2048, 2048, device="cuda") @
+                             torch.randn(2048, 2048, device="cuda"), iters=5)
+    if not (span and kernels and sec > 0):
+        raise AssertionError(f"debug: span {span}, kernels {kernels}, timed {sec}")
+    return {"phase": "debug", "no_host_transfers_raised": raised, "nan_error": nan_error,
+            "trace_span": span, "trace_kernels": kernels, "timed_2048_matmul_ms": 1e3 * sec}
+
+
+def phase_roofline(embed: dict) -> dict:
+    """``bench.roofline`` at the embed phase's batch (IR-50, 256, bf16): its
+    measured ms a batch against the summed per-layer bound; and a traced
+    train step at the train phase's batch (``xprof_check.trace_train``:
+    casia_arcface, 512, 3 steps) with each group's time against
+    ``train_step_bounds`` (BN and PReLU by bytes, convs by FLOPs)."""
+    from crfr_torch.bench.roofline import (group_bounds, ir_layer_bounds, summarize,
+                                           train_step_bounds)
+    from crfr_torch.bench.xprof_check import trace_train
+
+    s = summarize(ir_layer_bounds("50", B, S))
+    groups = group_bounds(train_step_bounds("50", TRAIN_B, S))
+    tr = trace_train(TRAIN_B, 3, "ir_50")
+    torch.cuda.empty_cache()
+    keys = ("fwd_conv_bound_ms", "train_conv_bound_3x_fwd_ms", "conv_over_3x_bound",
+            "dispatch_gap_ms", "group_bound_ms", "group_over_bound", "wall_ms_per_step",
+            "device_busy_ms_per_step", "idle_share_traced", "group_ms_per_step")
+    return {"phase": "roofline",
+            "embed": {"batch": B, "bound_ms": 1e3 * s.bound_s, "flops_bound_ms":
+                      1e3 * s.t_flops_ideal_s, "bytes_bound_ms": 1e3 * s.t_mem_s,
+                      "measured_ms": embed["ms_per_batch"],
+                      "attainment": s.attainment(embed["ms_per_batch"] / 1e3),
+                      "mfu_bf16": s.mfu(embed["ms_per_batch"] / 1e3)},
+            "train": {"batch": TRAIN_B, "bound_ms_by_group": {k: 1e3 * v
+                                                              for k, v in groups.items()},
+                      **{k: tr[k] for k in keys}}}
 
 
 SR_ONE_RESIZE = {"fused_degrade_normalize": 0, LOWS_NAME: 0, "fused_resize_normalize": 1}
@@ -2787,6 +3086,16 @@ def main() -> int:
     train = phase_train(fp)
     emit({**train, "card": smi})
     emit(phase_cli())
+    train_eval = phase_train_eval(fp)
+    emit({**train_eval, "card": smi})
+    recycle = phase_recycle()
+    emit({**recycle, "card": smi})
+    emit(phase_debug())             # before the soak's profiler sessions (see phase_debug)
+    soak = phase_soak(fp)
+    emit({**soak, "card": smi})
+    emit({**phase_schedule_soak(), "card": smi})
+    emit({**phase_roofline(embed), "card": smi})
+    torch.cuda.empty_cache()
     sr_train = phase_sr_train(fp)
     emit({**sr_train, "card": smi})
     sr_extract = phase_sr_extract(fp)
@@ -2825,6 +3134,8 @@ def main() -> int:
     # for the form with a low per image, an SR train step for the resize
     paths = {"embed": embed["launches"], "gallery": gallery["launches"],
              "serve": serve["launches"], "train": train["launches"],
+             **({"train_eval": train_eval["launches"]} if train_eval["run"] else {}),
+             "soak": soak["launches"],
              "sr_train": sr_train["launches"], "sr_extract": sr_extract["launches"],
              **{f"distill_{p}": v["launches"] for p, v in distill["paths"].items()},
              "int8_embed": int8_embed["launches"],

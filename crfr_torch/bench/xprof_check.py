@@ -36,7 +36,13 @@ JSON line: wall ms per call (untraced and traced), device busy ms per call
 (the union of kernel intervals in the trace), the idle share of the traced
 window, device time per call by kernel group, and the heaviest kernels by
 name. Kernels are read from the profiler's Chrome trace (events of category
-``kernel``); a trace with none raises.
+``kernel``); a trace with none raises. ``embed`` and ``embed_int8`` also
+print the batch's roofline bound (``bench.roofline.ir_layer_bounds``) and
+its attainment (bound over wall time); ``train`` prints crfr's roofline
+keys (``fwd_conv_bound_ms``, ``train_conv_bound_3x_fwd_ms``,
+``conv_over_3x_bound``, ``dispatch_gap_ms``) and each group's bound from
+``bench.roofline.train_step_bounds`` beside its time over it
+(``train_roofline``).
 """
 
 from __future__ import annotations
@@ -51,6 +57,8 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from crfr_torch.bench.roofline import (group_bounds, ir_layer_bounds, summarize,
+                                       train_step_bounds)
 from crfr_torch.bench.throughput import build_embed_pipeline
 from crfr_torch.device import resolve_device
 
@@ -222,10 +230,16 @@ def trace_embed(batch: int = 256, steps: int = 10, backbone: str = "ir_50",
                       device=dev, dtype=torch.uint8)
     r = (_profile(lambda: embed(x), steps, dev, top, _INT8_GROUPS, _QUANT_SPANS) if int8
          else _profile(lambda: embed(x), steps, dev, top))
+    # the IR batch's bound; its int8 form at one byte an element and the int8 peak
+    bound_ms = (1e3 * summarize(ir_layer_bounds(_depth(backbone), batch, image_size,
+                                                dtype="int8" if int8 else "bfloat16")).bound_s
+                if backbone.startswith("ir_") else None)
     return {
         "backbone": backbone, "batch": batch, "steps": steps, "degrade_to": degrade_to,
         "int8": int8, "card": _card(),
         "wall_ms_per_batch": r["wall_ms"],
+        "roofline_bound_ms": bound_ms,
+        "attainment": bound_ms / r["wall_ms"] if bound_ms else None,
         "traced_wall_ms_per_batch": r["traced_wall_ms"],
         "device_busy_ms_per_batch": r["device_busy_ms"],
         "idle_share_traced": r["idle_share_traced"],
@@ -286,6 +300,7 @@ def trace_train(batch: int = 512, steps: int = 5, backbone: str = "ir_50",
     return {
         "backbone": backbone, "batch": batch, "classes": num_classes, "steps": steps,
         "preset": "casia_arcface", "card": _card(),
+        **train_roofline(r, backbone, batch, 112, cfg.model.compute_dtype),
         "wall_ms_per_step": r["wall_ms"],
         "traced_wall_ms_per_step": r["traced_wall_ms"],
         "device_busy_ms_per_step": r["device_busy_ms"],
@@ -294,6 +309,38 @@ def trace_train(batch: int = 512, steps: int = 5, backbone: str = "ir_50",
         "group_ms_per_step": r["group_ms"],
         "heaviest": [{"name": h["name"], "ms_per_step": h["ms"], "calls_per_step": h["calls"]}
                      for h in r["heaviest"]],
+    }
+
+
+def _depth(backbone: str) -> str:
+    return backbone.split("_")[1]
+
+
+def train_roofline(r: dict, backbone: str, batch: int, image_size: int,
+                   dtype: str = "bfloat16") -> dict:
+    """A profiled train step (``_profile``'s result) against the roofline:
+    crfr's keys (the forward convs' bound, 3× it for forward + dgrad +
+    wgrad, the conv groups' time over that, the host's gap between the
+    wall time and the device's busy time), and each group's bound from
+    ``roofline.train_step_bounds`` (convs forward and backward by FLOPs,
+    train-mode BN and PReLU by bytes) with its measured time over it.
+    PReLU's alpha-gradient reductions fall in the ``reduce`` group, which
+    its bound also covers, so ``prelu_and_reduce`` is set beside it."""
+    fwd = summarize(ir_layer_bounds(_depth(backbone), batch, image_size, dtype=dtype))
+    bounds = group_bounds(train_step_bounds(_depth(backbone), batch, image_size, dtype))
+    g = r["group_ms"]
+    conv_ms = g.get("conv_forward", 0.0) + g.get("conv_backward", 0.0)
+    measured = {k: g.get(k, 0.0) for k in bounds}
+    measured["prelu_and_reduce"] = g.get("prelu", 0.0) + g.get("reduce", 0.0)
+    bound_ms = {k: 1e3 * v for k, v in bounds.items()}
+    bound_ms["prelu_and_reduce"] = bound_ms["prelu"]
+    return {
+        "fwd_conv_bound_ms": 1e3 * fwd.bound_s,
+        "train_conv_bound_3x_fwd_ms": 3e3 * fwd.bound_s,
+        "conv_over_3x_bound": conv_ms / (3e3 * fwd.bound_s),
+        "dispatch_gap_ms": r["wall_ms"] - r["device_busy_ms"],
+        "group_bound_ms": bound_ms,
+        "group_over_bound": {k: measured[k] / v for k, v in bound_ms.items()},
     }
 
 

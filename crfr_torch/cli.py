@@ -2,7 +2,8 @@
 
     python -m crfr_torch train --preset casia_arcface [key=value ...]
         [--max-steps N] [--steps-per-epoch N] [--resume] [--workers N]
-        [--train-records PATH.crfrpack] [--tensorboard DIR] [--device cuda|cpu]
+        [--train-records PATH.crfrpack] [--eval-bin SET.bin]
+        [--recycle-every-steps N] [--tensorboard DIR] [--device cuda|cpu]
 
     python -m crfr_torch train-sr --preset casia_arcface [key=value ...]
         [--scale 8] [--max-steps N] [--resume] [--teacher-ckpt DIR]
@@ -15,7 +16,7 @@
         [key=value ...] [--kd-weight W] [--max-steps N] [--resume]
         [--sr-ckpt DIR [--sr-scale 8] [--sr-bicubic-skip 1|0]
          [--sr-finetune [--sr-lr LR] [--sr-pixel-weight W]]]
-        [--tensorboard DIR] [--device cuda|cpu]
+        [--eval-bin SET.bin] [--tensorboard DIR] [--device cuda|cpu]
 
     python -m crfr_torch headline [--out DIR] [--probe-sizes 16,8] [--seeds N]
         [--device cuda|cpu] [field=value ...]
@@ -56,7 +57,14 @@ latest checkpoint with ``--resume``, and prints ``{"final_step": N}``. It
 trains on the CUDA device unless ``--device cpu`` is given. Without
 ``data.train_records`` it draws ``SyntheticFaces`` batches, batch k from
 the generator seeded (seed, k), so a resumed run continues the same
-stream.
+stream. ``--eval-bin`` verifies an insightface ``.bin`` set every
+``train.eval_every_steps`` with the live weights (degraded to
+``data.eval_degrade_size`` when set, flip-TTA) and writes
+``eval_accuracy``/``eval_eer`` to the metrics, after the checkpoint of that
+step. ``--recycle-every-steps N`` checkpoints and replaces the process with
+``python -m crfr_torch <the same argv> --resume`` every N steps, appending a
+record to ``<checkpoint_dir>/recycles.jsonl``; the generations continue one
+run and one metrics stream.
 
 ``train-sr`` trains the hallucinator (``train.sr_loop.SRTrainer``) on the
 same feed, labels ignored (records resume by skipping the batches already
@@ -73,7 +81,8 @@ checkpoints under ``<checkpoint_dir>/student`` and metrics in
 ``<checkpoint_dir>/distill_metrics.jsonl``, and prints the last step's
 losses and ``"steps"``. ``--sr-ckpt`` feeds the student hallucinated faces
 from a frozen G; with ``--sr-finetune`` G trains jointly and checkpoints
-with the student.
+with the student. ``--eval-bin`` verifies a ``.bin`` set with the
+student's embedding plus its residual every ``train.eval_every_steps``.
 
 ``headline`` runs the paper's composed experiment
 (``experiments.headline``) and prints its results and the ordering per
@@ -134,21 +143,63 @@ def _synthetic_batches(cfg, start: int, stop: int):
         yield synth.sample(np.random.default_rng([cfg.train.seed, step]), cfg.train.batch_size)
 
 
+def _recycle_exec(args, cfg, step: int, device) -> None:
+    """Replace this training process with a fresh one resuming at ``step``
+    (crfr/cli.py's ``_recycle_exec``): a long run bounds the host memory a
+    process can retain by restarting itself every N steps. Appends
+    ``{"step", "gen", "max_rss_mb"}`` (and ``"max_cuda_mb"``, the card's
+    peak of allocated memory, when training on CUDA) to
+    ``<checkpoint_dir>/recycles.jsonl``, then ``os.execv``'s
+    ``python -m crfr_torch <argv> --resume``; never returns."""
+    import resource
+
+    import torch
+
+    gen = int(os.environ.get("CRFR_RECYCLE_GEN", "0")) + 1
+    rss_mb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+    rec = {"step": step, "gen": gen, "max_rss_mb": round(rss_mb, 1)}
+    if device.type == "cuda":
+        rec["max_cuda_mb"] = round(torch.cuda.max_memory_allocated(device) / 2**20, 1)
+    with open(os.path.join(cfg.train.checkpoint_dir, "recycles.jsonl"), "a") as f:
+        f.write(json.dumps(rec) + "\n")
+    argv = list(args._argv)
+    if "--resume" not in argv:
+        argv.append("--resume")
+    os.environ["CRFR_RECYCLE_GEN"] = str(gen)
+    print(f"recycling process at step {step} (gen {gen}, max RSS {rss_mb:.0f} MB)",
+          file=sys.stderr)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os.execv(sys.executable, [sys.executable, "-m", "crfr_torch", *argv])
+
+
+def _bin_eval(args, cfg, metrics, embed_fn, device):
+    """``eval(step)``: verification on ``--eval-bin`` through ``embed_fn``
+    (raw uint8 batch → embeddings), written as ``eval_accuracy`` and
+    ``eval_eer`` at ``step``; None without ``--eval-bin``."""
+    if not args.eval_bin:
+        return None
+    from crfr_torch.data.bins import evaluate_bin
+
+    def run(step: int) -> None:
+        res = evaluate_bin(args.eval_bin, embed_fn, cfg.eval.batch_size, cfg.model.input_size,
+                           cfg.eval.n_folds, device=device)
+        metrics.write(step, eval_accuracy=res.accuracy_mean, eval_eer=res.eer)
+
+    return run
+
+
 def cmd_train(args, overrides: list[str]) -> int:
     from crfr_torch.configs import get_config
+    from crfr_torch.eval.extract import make_extract_fn
     from crfr_torch.train.checkpoints import Checkpointer
     from crfr_torch.train.feed import ResumableDeviceFeed, device_feed
     from crfr_torch.train.loop import Trainer
     from crfr_torch.utils.logging import MetricsWriter
 
-    if args.eval_bin:
-        raise NotImplementedError("--eval-bin (evaluation on a data/bins.py set during "
-                                  "training) is not ported yet (ROADMAP.md item 13)")
-    if args.recycle_every_steps:
-        raise NotImplementedError("--recycle-every-steps is not ported yet (ROADMAP.md item 13)")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("training in more than one process is not ported yet "
-                                  "(ROADMAP.md item 13)")
+                                  "(ROADMAP.md item 13.4)")
     cfg = get_config(args.preset, overrides)
     if args.train_records:
         cfg = cfg.override(**{"data.train_records": args.train_records})
@@ -187,10 +238,16 @@ def cmd_train(args, overrides: list[str]) -> int:
             with open(data_state_path, "w") as f:
                 json.dump({"step": step, "state": feed.state}, f)
 
+    # the eval function is built once; state_fn hands it the live weights
+    in_loop_eval = _bin_eval(args, cfg, metrics, make_extract_fn(
+        tr.backbone_apply, state_fn=tr.embed_state, degrade_to=cfg.data.eval_degrade_size,
+        resize_mode=cfg.data.resize_mode, flip_fusion=cfg.eval.flip_fusion,
+        image_size=cfg.model.input_size, device=tr.device), tr.device)
+
     t0, n_img = time.time(), 0
-    for imgs, labels in feed:
-        if args.max_steps and tr.host_step >= args.max_steps:
-            break
+    # the stop is tested after a step, not before the next draw: a batch drawn
+    # and not trained would move the saved pipeline state past the last step
+    for imgs, labels in ([] if args.max_steps and start >= args.max_steps else feed):
         m = tr.train_step(imgs, labels)
         n_img += len(labels)
         step = tr.host_step
@@ -199,11 +256,24 @@ def cmd_train(args, overrides: list[str]) -> int:
                           lr=tr.schedule(step), **{k: float(v) for k, v in m.items()})
         if step % cfg.train.checkpoint_every_steps == 0:
             save(step)
+        if in_loop_eval is not None and step % cfg.train.eval_every_steps == 0:
+            in_loop_eval(step)
+        if (args.recycle_every_steps and step - start >= args.recycle_every_steps
+                and not (args.max_steps and step >= args.max_steps)):
+            # checkpoint, close, and replace this process with one resuming
+            # here: resume is bitwise and metrics.jsonl appends, so the
+            # generations make one run and one stream
+            save(step, force=True)
+            feed.close()
+            ck.close()
+            metrics.close()
+            _recycle_exec(args, cfg, step, tr.device)
+        if args.max_steps and step >= args.max_steps:
+            break
     step = tr.host_step
     if ck.latest_step() != step:
         save(step, force=True)
-    if cfg.data.train_records:
-        feed.close()
+    feed.close()
     ck.close()
     metrics.close()
     print(json.dumps({"final_step": step}), flush=True)
@@ -224,11 +294,13 @@ def _restore_teacher(ckpt_dir: str, cfg, device):
     return teacher
 
 
-def _run_steps(tr, cfg, ck, max_steps: int, step_fn) -> dict:
+def _run_steps(tr, cfg, ck, max_steps: int, step_fn, evaluate=None) -> dict:
     """Feed ``step_fn(images, labels)`` from ``tr.step`` to ``max_steps``
     (1000 steps from the start when 0): records from the start step on, or
     synthetic batch k from (seed, k); a checkpoint every
-    ``checkpoint_every_steps`` and at the end. Returns the last metrics."""
+    ``checkpoint_every_steps`` and at the end, and ``evaluate(step)`` (when
+    given) every ``eval_every_steps`` after the checkpoint. Returns the last
+    metrics."""
     from crfr_torch.train.feed import device_feed
 
     start = tr.step
@@ -250,6 +322,8 @@ def _run_steps(tr, cfg, ck, max_steps: int, step_fn) -> dict:
             m = step_fn(imgs, labels)
             if tr.step % cfg.train.checkpoint_every_steps == 0:
                 ck.save(tr.step, tr.state_dict(), cfg.to_json())
+            if evaluate is not None and tr.step % cfg.train.eval_every_steps == 0:
+                evaluate(tr.step)
     finally:
         if cfg.data.train_records:
             batches.close()
@@ -269,7 +343,7 @@ def cmd_train_sr(args, overrides: list[str]) -> int:
         raise ValueError("--perceptual requires --teacher-ckpt")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("training in more than one process is not ported yet "
-                                  "(ROADMAP.md item 13)")
+                                  "(ROADMAP.md item 13.4)")
     cfg = get_config(args.preset, overrides)
     if args.train_records:
         cfg = cfg.override(**{"data.train_records": args.train_records})
@@ -308,14 +382,11 @@ def cmd_train_distill(args, overrides: list[str]) -> int:
     from crfr_torch.train.sr_loop import SRTrainer, load_sr_apply
     from crfr_torch.utils.logging import MetricsWriter
 
-    if args.eval_bin:
-        raise NotImplementedError("--eval-bin (evaluation on a data/bins.py set during "
-                                  "training) is not ported yet (ROADMAP.md item 13)")
     if args.sr_finetune and not args.sr_ckpt:
         raise ValueError("--sr-finetune requires --sr-ckpt")
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("training in more than one process is not ported yet "
-                                  "(ROADMAP.md item 13)")
+                                  "(ROADMAP.md item 13.4)")
     cfg = get_config(args.preset, overrides)
     if cfg.loss.distill_weight <= 0:
         cfg = cfg.override(**{"loss.distill_weight": args.kd_weight})
@@ -341,7 +412,9 @@ def cmd_train_distill(args, overrides: list[str]) -> int:
     if args.resume and sck.latest_step() is not None:
         st.load_state_dict(sck.restore(st.state_dict()))
         print(f"resumed student from step {st.step}", file=sys.stderr)
-    m = _run_steps(st, cfg, sck, args.max_steps, st.train_step)
+    # the student's embedding with its residual, on the live weights
+    evaluate = _bin_eval(args, cfg, metrics, st.student_embed_fn(with_residual=True), st.device)
+    m = _run_steps(st, cfg, sck, args.max_steps, st.train_step, evaluate)
     metrics.close()
     print(json.dumps({k: float(v) for k, v in m.items()} | {"steps": st.step}), flush=True)
     return 0
@@ -886,10 +959,12 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--train-records", default="",
                    help=".crfrpack of (label, image) records (data.train_records)")
-    p.add_argument("--eval-bin", default="", help="not ported yet")
+    p.add_argument("--eval-bin", default="",
+                   help="an insightface .bin verified every train.eval_every_steps")
     p.add_argument("--tensorboard", default="",
                    help="also mirror metrics to TensorBoard event files")
-    p.add_argument("--recycle-every-steps", type=int, default=0, help="not ported yet")
+    p.add_argument("--recycle-every-steps", type=int, default=0,
+                   help="checkpoint and restart the process (--resume) every N steps")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_train)
 
@@ -939,7 +1014,8 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--sr-lr", type=float, default=1e-5)
     p.add_argument("--sr-pixel-weight", type=float, default=0.3,
                    help="weight of the pixel anchor of joint G fine-tuning")
-    p.add_argument("--eval-bin", default="", help="not ported yet")
+    p.add_argument("--eval-bin", default="",
+                   help="an insightface .bin verified every train.eval_every_steps")
     p.add_argument("--tensorboard", default="",
                    help="also mirror metrics to TensorBoard event files")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -1112,6 +1188,7 @@ def main(argv: list[str] | None = None) -> int:
     p.set_defaults(fn=cmd_serve_http)
 
     args, extra = ap.parse_known_args(argv)
+    args._argv = list(sys.argv[1:] if argv is None else argv)     # for --recycle-every-steps
     overrides, unknown = _split_overrides(extra)
     if unknown:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")

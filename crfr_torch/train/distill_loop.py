@@ -233,7 +233,7 @@ class DistillTrainer(Trainer):
         if local_snapshot:
             raise NotImplementedError("local_snapshot (every host evaluating on a local "
                                       "copy of the state) is not ported yet (ROADMAP.md "
-                                      "item 13)")
+                                      "item 13.4)")
 
         def run(images) -> torch.Tensor:
             x = normalize(_as_tensor(images, self.device))

@@ -5,7 +5,8 @@ A teacher from 2 steps of ``train``; then 4 distillation steps and
 momentum, step), on synthetic batches drawn from (seed, step); the same
 with a frozen G from a ``train-sr`` checkpoint (``--sr-ckpt``), and with G
 trained jointly (``--sr-finetune``), whose state and Adam moments
-checkpoint with the student. What is not ported raises."""
+checkpoint with the student. ``--eval-bin`` writes what the restored
+student reads. What is not ported raises."""
 
 import json
 
@@ -16,7 +17,7 @@ import torch
 from crfr_torch.cli import main
 from tests.test_torch_sr_losses import one_thread  # noqa: F401 (autouse)
 from tests.test_torch_sr_train import _equal_states
-from tests.test_torch_train_cli import OVERRIDES
+from tests.test_torch_train_cli import OVERRIDES, eval_bin_file
 
 KD = ["loss.distill_weight=0.05", "train.grad_clip_norm=5.0", "model.dropout=0.4"]
 
@@ -70,8 +71,31 @@ def test_resume_equals_straight_run(tmp_path, capsys, teacher_ckpt, sr_ckpt, sr)
     assert (a / "distill_metrics.jsonl").exists()
 
 
+def test_eval_bin_equals_the_restored_student(tmp_path, teacher_ckpt):
+    """``--eval-bin`` at steps 2 and 4 writes what the student restored
+    from that step's checkpoint reads on the same ``.bin`` (its embedding
+    plus the residual, as crfr's in-loop eval)."""
+    from crfr_torch.configs import Config
+    from crfr_torch.data.bins import evaluate_bin
+    from crfr_torch.train.distill_loop import DistillTrainer
+
+    ebin = eval_bin_file(tmp_path)
+    ck = tmp_path / "ck"
+    assert _distill(teacher_ckpt, ck, 4, "--eval-bin", str(ebin), "train.eval_every_steps=2") == 0
+    rows = [json.loads(line) for line in (ck / "distill_metrics.jsonl").read_text().splitlines()]
+    evals = [r for r in rows if "eval_accuracy" in r]
+    assert [r["step"] for r in evals] == [2, 4]
+    for r in evals:
+        saved = torch.load(ck / "student" / f"step_{r['step']:09d}.pt", weights_only=True)
+        cfg = Config.from_dict(json.loads(saved["config"]))
+        st = DistillTrainer(cfg, teacher_fn=lambda x: None, device="cpu")
+        st.load_state_dict(saved["state"])
+        res = evaluate_bin(str(ebin), st.student_embed_fn(with_residual=True),
+                           cfg.eval.batch_size, cfg.model.input_size, cfg.eval.n_folds,
+                           device="cpu")
+        assert (res.accuracy_mean, res.eer) == (r["eval_accuracy"], r["eval_eer"]), r
+
+
 def test_refusals(tmp_path, teacher_ckpt):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _distill(teacher_ckpt, tmp_path, 2, "--eval-bin", "lfw.bin")
     with pytest.raises(ValueError, match="--sr-finetune requires --sr-ckpt"):
         _distill(teacher_ckpt, tmp_path, 2, "--sr-finetune")

@@ -22,6 +22,7 @@ from flax import nnx
 from crfr.models import mtcnn as rm
 from crfr_torch.models import mtcnn as pm
 from crfr_torch.models.convert import mtcnn_state_from_jax
+from tests.test_torch_align import crfr_native  # noqa: F401 (fixture)
 from tests.test_torch_sr_losses import one_thread  # noqa: F401 (autouse)
 
 
@@ -96,7 +97,7 @@ def test_host_machinery_equals_crfrs(rng):
     assert mt._pyramid_scales(480, 640) == ref._pyramid_scales(480, 640)
 
 
-def test_crop_resize_matches_crfrs(rng):
+def test_crop_resize_matches_crfrs(rng, crfr_native):
     img = rng.integers(0, 256, (90, 70, 3)).astype(np.uint8)
     boxes = np.asarray([[10.7, 5.2, 40.9, 35.1], [-8.6, -3.2, 30.1, 36.4],
                         [50.0, 60.0, 95.0, 105.0], [20.0, 20.0, 20.0, 30.0],
@@ -164,7 +165,7 @@ def test_state_from_jax_refuses_other_modules():
         mtcnn_state_from_jax({"backbone/conv/kernel": np.zeros((3, 3, 3, 4), np.float32)})
 
 
-def test_cascade_matches_crfr(twins, rng):
+def test_cascade_matches_crfr(twins, rng, crfr_native):
     ref, port = twins
     img = rng.integers(0, 256, (160, 120, 3)).astype(np.uint8)
     want = ref.detect(img)

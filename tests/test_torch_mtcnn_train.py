@@ -25,6 +25,7 @@ from crfr.train import mtcnn_train as rt
 from crfr_torch.models import mtcnn as pm
 from crfr_torch.models.convert import mtcnn_state_from_jax, params_from_jax
 from crfr_torch.train import mtcnn_train as pt
+from tests.test_torch_align import crfr_native  # noqa: F401 (fixture)
 from tests.test_torch_sr_losses import one_thread  # noqa: F401 (autouse)
 
 LR, STEPS = 2e-3, 3
@@ -67,7 +68,7 @@ def test_renderer_equals_crfrs():
 
 
 @pytest.mark.parametrize("size,n_pos,n_neg", [(12, 3, 3), (24, 4, 2), (48, 3, 3)])
-def test_sampler_equals_crfrs(size, n_pos, n_neg):
+def test_sampler_equals_crfrs(size, n_pos, n_neg, crfr_native):
     a, b = np.random.default_rng(11), np.random.default_rng(11)
     for _ in range(2):
         sa, sb = rt.render_scene(a), pt.render_scene(b)
@@ -120,7 +121,7 @@ def test_loss_masks_negatives():
     assert float(pt.mtcnn_loss(out, cls, reg, lmk)) == pytest.approx(ce + 0.5 * 0.01, rel=1e-6)
 
 
-def test_train_synthetic_matches_crfr():
+def test_train_synthetic_matches_crfr(crfr_native):
     """Two steps of the whole loop (two scenes a step) from crfr's weights
     with the same seed: the same last losses, the same weights."""
     ref = rm.MTCNN(min_face=40, seed=0)

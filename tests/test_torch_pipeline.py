@@ -19,7 +19,7 @@ from crfr_torch.models.convert import train_state_from_jax
 from crfr_torch.models.mtcnn import MTCNN
 from crfr_torch.pipeline import FaceRecognizer
 from tests.test_torch_sr_losses import one_thread  # noqa: F401 (autouse)
-from tests.test_torch_align import assert_u8_crops
+from tests.test_torch_align import assert_u8_crops, crfr_native  # noqa: F401 (fixture)
 from tests.test_torch_train import ref_flat
 
 
@@ -45,7 +45,7 @@ def _lms():
                      REFERENCE_LANDMARKS_112 * 0.9 + 50]).astype(np.float32)
 
 
-def test_crops_match_crfrs(recs, rng):
+def test_crops_match_crfrs(recs, rng, crfr_native):
     ref, port = recs
     img = rng.integers(0, 256, (200, 180, 3)).astype(np.uint8)
     want = ref.detect_and_align(img, _lms())
