@@ -5,11 +5,14 @@ soak, the schedule soak, debug and profiling, the roofline, SR training, halluci
 extraction, the SR CLI, residual KD, the KD CLI, the int8 embed path, the
 int8 serving CLI, the headline experiment, detection, recognition from a
 photo, MobileFaceNet, the serving artifact, the artifact daemon in this
-process and from the CLI, and the evaluation CLI.
+process and from the CLI, the evaluation CLI, and two rank processes on
+the card (the sharded gallery scan, data-parallel and class-sharded
+training, the two-process train CLI).
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line (with ``elapsed_s``, the seconds
+since the script started):
 
 1. device: the card, its power limit (nvidia-smi), and the kernel build time;
 2. kernels: every CUDA kernel of the port, built from the sources in this
@@ -263,7 +266,27 @@ Phases, each printing one JSON line:
    it) and with ``--device cpu``: the same JSON, accuracies and ranks
    exactly, other numbers within 1e-4; ``import-torch`` on both equal;
    ``pack`` of a folder tree and of an MX ``.rec``, read back.
-   Without PIL it prints ``{"phase": "eval_cli", "run": false, ...}``.
+   Without PIL it prints ``{"phase": "eval_cli", "run": false, ...}``;
+24. distributed: two rank processes on the one card (this script with
+   ``--rank``, or ``python -m crfr_torch train``), started through the
+   port's ``CRFR_*`` launch variables on gloo (NCCL refuses two ranks on
+   one card; gloo stages CUDA tensors through the host, the kernels run on
+   the card), each with a time limit: (a) phase 5's bank row-sharded, each
+   rank uploading and scanning its 2^19 rows (``bank_tilemax`` once a
+   rank, counted in the rank), equal to phase 5's one-process fused scan
+   (scores within 1e-6, labels outside ties, top-1 planted); (b) the
+   preset at full width (IR-50, 10,572 classes) as data=2 and as model=2
+   (the class-sharded head): three float32 steps at a global batch of 64
+   (s=16, m=0.2, lr 1e-3) under ``strict_fp32()`` against the one-process
+   trainer here (losses
+   within 1e-4 relative, parameters and BN statistics within rtol 1e-3 /
+   atol 1e-4), then ten bf16 steps at 512 (ms a step, peak memory and
+   kernel 1' launches a rank: one a step), then a split extract of 256
+   faces (kernel 1 once a rank, cosine to the whole batch > 0.999); (c)
+   ``train`` as two processes on a ``.crfrpack``: 4 steps + ``--resume`` to
+   6 equal to 6 straight (or within two straight runs' spread), metrics
+   from rank 0 alone, ``data_state_{0,1}.json``.
+   ``python3 chip_smoke.py --only distributed`` runs phase 5 and this one.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the exit code is
@@ -299,7 +322,12 @@ SR_SCALE, SR_B = 8, 256                # the SR phase's batch: the largest power
 SR_LOW = S // SR_SCALE
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -803,6 +831,9 @@ def build_bank(rows: np.ndarray):
                      labels=np.concatenate([b.labels for b in parts]))
 
 
+GALLERY_REF: dict = {}                 # the one-process fused scan, for phase 24
+
+
 def phase_gallery(bs) -> dict:
     from crfr_torch.eval.bank import streaming_topk_q, topk_matches_bank
     from crfr_torch.eval.identification import _auto_block, closed_set_identification
@@ -836,6 +867,7 @@ def phase_gallery(bs) -> dict:
     closed = closed_set_identification(probes, bank, planted, None)
     if closed.rank1 != 1.0:
         raise AssertionError(f"gallery: closed-set rank-1 {closed.rank1}")
+    GALLERY_REF.update(probes=probes, planted=planted, s=s_f, l=l_f)   # for phase 24
 
     p = torch.from_numpy(probes).cuda()
     block = _auto_block(0, B)
@@ -3053,10 +3085,365 @@ def phase_eval_cli(fp, bs) -> dict:
             "launches": {k: v["launches"] for k, v in runs.items()}}
 
 
+
+# ---------------------------------------------------------------------------
+# 24. distributed: two rank processes on the one card
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 2
+DIST_F32_B, DIST_F32_STEPS = 64, 3     # the float32 comparison's global batch and steps
+DIST_BF16_STEPS = 10
+# the float32 comparison: the preset at full width (IR-50, 10,572 classes,
+# per-image lows 8-112, dropout 0.4) with phase 7's parity loss (s=16,
+# m=0.2, no warmup) on SyntheticFaces images, at lr 1e-3: at phase 7's lr
+# 0.01 the loss falls 23% in three steps and the last-bit differences of
+# the first step (two ranks sum BN statistics and gradients in another
+# order than one process) grow past the bound by the third, on either
+# layout, with dropout or without
+DIST_F32_OV = ["model.compute_dtype=float32", "train.warmup_steps=0", "loss.scale=16.0",
+               "loss.margin=0.2", "train.lr=0.001", f"train.batch_size={DIST_F32_B}"]
+DIST_LAYOUTS = {"data2": (2, 1), "model2": (1, 2)}
+
+
+def _dist_env(tmp: str, tag: str) -> dict:
+    """The rank processes' environment: the port's own launch variables,
+    a group through a file, and gloo (NCCL refuses two ranks on one card;
+    gloo stages CUDA tensors through the host for its collectives, while
+    every kernel still runs on the card)."""
+    return {**_child_env(), "CRFR_COORDINATOR": f"file://{tmp}/pg_{tag}",
+            "CRFR_NUM_PROCESSES": str(DIST_WORLD), "CRFR_DIST_BACKEND": "gloo"}
+
+
+def _launch_ranks(argv: list[str], env: dict, what: str, timeout: float = 300) -> list:
+    """``argv`` as DIST_WORLD processes (CRFR_PROCESS_ID 0..), each with a
+    time limit; every one is stopped before this returns. → their
+    (stdout, stderr)."""
+    root = Path(__file__).resolve().parent
+    procs = [subprocess.Popen(argv, cwd=root, env={**env, "CRFR_PROCESS_ID": str(r)},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(DIST_WORLD)]
+    outs, deadline = [], time.time() + timeout
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(deadline - time.time(), 1)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"distributed {what}: ranks {bad} failed\n"
+                             + "\n".join(f"{o[-1500:]}\n{e[-3000:]}" for o, e in outs))
+    return outs
+
+
+def _run_rank_case(case: str, tmp: str, timeout: float = 300) -> list[dict]:
+    _launch_ranks([sys.executable, str(Path(__file__).resolve()), "--rank", case, tmp],
+                  _dist_env(tmp, case), case, timeout)
+    return [torch.load(f"{tmp}/{case}_{r}.pt", weights_only=False) for r in range(DIST_WORLD)]
+
+
+def _rank_gallery(tmp: str, rank: int) -> dict:
+    """The gallery phase's bank row-sharded over the ranks: each uploads and
+    scans only its 2^19 rows (one bank_tilemax launch), then the k·ranks
+    merge."""
+    from crfr_torch.eval.bank import QuantBank, bank_topk_fused, topk_matches_bank
+    from crfr_torch.eval.identification import merge_shards, shard_rows
+    from crfr_torch.ops import bank_scan as bs
+    from crfr_torch.parallel import make_mesh
+
+    probes = np.load(f"{tmp}/gallery_in.npz")["probes"]
+    bank = build_bank(unit_rows(5, BANK_M))          # on the host: ranks copy their rows
+    mesh = make_mesh(None, "cuda")
+    torch.cuda.synchronize()
+    bs.bank_tilemax.launches = 0
+    t0 = time.perf_counter()
+    s, lab = topk_matches_bank(probes, bank, k=BANK_K, mesh=mesh, device="cuda")
+    wall_s = time.perf_counter() - t0
+    launches = bs.bank_tilemax.launches
+    # the steady scan: this rank's rows already on the card, then the merge
+    lo, hi, _ = shard_rows(BANK_M, DIST_WORLD)
+    local = QuantBank(bank.q[lo:hi], bank.scale[lo:hi], bank.labels[lo:hi]).to_device("cuda")
+    p = torch.from_numpy(probes).cuda()
+    scan_ms, _ = event_ms(lambda: bank_topk_fused(p, local.q, local.scale, local.labels,
+                                                  k=BANK_K))
+    ls, ll = bank_topk_fused(p, local.q, local.scale, local.labels, k=BANK_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        merge_shards(ls, ll, BANK_K)
+    torch.cuda.synchronize()
+    merge_ms = (time.perf_counter() - t0) / 5 * 1e3
+    return {"s": s, "l": lab, "launches": launches, "rows": hi - lo,
+            "first_call_s": wall_s, "local_scan_ms": scan_ms, "merge_ms": merge_ms}
+
+
+def _rank_train(tmp: str, rank: int) -> dict:
+    """For each layout: DIST_F32_STEPS float32 steps of the preset at full
+    width on the saved global batches (state gathered, rank 0 saves it);
+    then DIST_BF16_STEPS bf16 steps at the preset's global batch 512, timed,
+    kernel 1' counted per rank; then ``make_extract_fn`` split over the
+    ranks on 256 images (one kernel-1 launch a rank)."""
+    from crfr_torch.configs import get_config
+    from crfr_torch.device import strict_fp32
+    from crfr_torch.eval.extract import make_extract_fn
+    from crfr_torch.ops import fused_preprocess as fp
+    from crfr_torch.train.loop import Trainer
+
+    inp = torch.load(f"{tmp}/train_in.pt", weights_only=False)
+    batches = inp["batches"]
+    out = {}
+    for name in inp["layouts"]:
+        d, m = DIST_LAYOUTS[name]
+        mesh_ov = [f"mesh.data={d}", f"mesh.model={m}"]
+        tr = Trainer(get_config("casia_arcface", inp["ov"] + mesh_ov), device="cuda")
+        with strict_fp32():
+            metrics = [{k: v.item() for k, v in tr.train_step(x, y).items()} for x, y in batches]
+        st = tr.state
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in st["model"].items()}, f"{tmp}/state_{name}.pt")
+        w_local = list(tr.model.head.weight.shape)
+        del tr, st
+        torch.cuda.empty_cache()
+        out[name] = {"f32_metrics": metrics, "w_local": w_local}
+        if not inp["bf16"]:
+            continue
+
+        cfg = get_config("casia_arcface", ["train.warmup_steps=0", *mesh_ov])
+        tr = Trainer(cfg, device="cuda")
+        g = torch.Generator(device="cuda").manual_seed(8)
+        x = torch.randint(0, 256, (TRAIN_B, S, S, 3), generator=g, device="cuda",
+                          dtype=torch.uint8)
+        y = torch.randint(0, cfg.data.num_classes, (TRAIN_B,), generator=g, device="cuda")
+        tr.train_step(x, y)                                    # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(fp)
+        t0 = time.perf_counter()
+        for _ in range(DIST_BF16_STEPS):
+            m_bf16 = tr.train_step(x, y)
+        loss = m_bf16["loss"].item()
+        ms = (time.perf_counter() - t0) / DIST_BF16_STEPS * 1e3
+        counts = _counts(fp)
+        peak = torch.cuda.max_memory_allocated()
+        faces = x[:B]
+        fn = make_extract_fn(tr.backbone_apply, state_fn=tr.embed_state, degrade_to=LOW,
+                             mesh=tr.mesh, device="cuda")
+        whole = make_extract_fn(tr.backbone_apply, state_fn=tr.embed_state, degrade_to=LOW,
+                                device="cuda")(faces)
+        _zero_counts(fp)
+        split = fn(faces)
+        torch.cuda.synchronize()
+        extract_counts = _counts(fp)
+        out[name].update({"bf16_ms_per_step": ms,
+                     "bf16_loss": loss, "peak_bytes": peak, "launches": counts,
+                     "extract_launches": extract_counts,
+                     "extract_cos_min_vs_whole": _cos_min(split.float(), whole.float())})
+        del tr, x, y, fn
+        torch.cuda.empty_cache()
+    return out
+
+
+RANK_CASES = {"gallery": _rank_gallery, "train": _rank_train}
+
+
+def rank_main(case: str, tmp: str) -> int:
+    """One rank process of the distributed phase, started through the
+    port's own launch variables (``parallel.multihost``)."""
+    import torch.distributed as dist
+
+    from crfr_torch.parallel.multihost import maybe_initialize_distributed, process_index
+
+    if not maybe_initialize_distributed("cuda"):
+        raise RuntimeError("no launch described in CRFR_COORDINATOR/_NUM_PROCESSES/_PROCESS_ID")
+    try:
+        rank = process_index()
+        out = RANK_CASES[case](tmp, rank)
+        torch.save(out, f"{tmp}/{case}_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _dist_f32_reference(batches, ov=DIST_F32_OV) -> dict:
+    """The one-process trainer's DIST_F32_STEPS float32 steps."""
+    from crfr_torch.configs import get_config
+    from crfr_torch.device import strict_fp32
+    from crfr_torch.train.loop import Trainer
+
+    tr = Trainer(get_config("casia_arcface", ov), device="cuda")
+    with strict_fp32():
+        metrics = [{k: v.item() for k, v in tr.train_step(x, y).items()} for x, y in batches]
+    state = {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}
+    del tr
+    torch.cuda.empty_cache()
+    return {"metrics": metrics, "state": state}
+
+
+def _dist_cli(tmp: str) -> dict:
+    """``python -m crfr_torch train`` (phase 8's cut, on IR-18) as two
+    processes on a ``.crfrpack``: 4 steps, ``--resume`` to 6, and 6
+    straight, with cuDNN's deterministic
+    algorithms; a second straight run only when the first two differ, to
+    bound the difference by the spread of straight runs."""
+    from crfr_torch.data.records import write_pack
+    from crfr_torch.train.checkpoints import Checkpointer
+
+    rng = np.random.default_rng(12)
+    write_pack(f"{tmp}/train.crfrpack", [(int(i % 64), rng.integers(0, 256, (S, S, 3))
+                                          .astype(np.uint8)) for i in range(256)])
+    launcher = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
+                "from crfr_torch.cli import main; sys.exit(main(sys.argv[1:]))")
+    env = {**_dist_env(tmp, "cli"), "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    ov = [*CLI_OV, "model.backbone=ir_18", "train.checkpoint_every_steps=2",
+          "train.log_every=1", f"mesh.data={DIST_WORLD}", "--train-records",
+          f"{tmp}/train.crfrpack"]
+    t0 = time.perf_counter()
+    runs = {}
+    for i, (tag, steps, resume) in enumerate((("a", 4, False), ("a", 6, True), ("b", 6, False),
+                                               ("c", 6, False))):
+        if tag == "c" and _state_equal(*[Checkpointer(f"{tmp}/{t}").restore(step=6)
+                                         for t in ("a", "b")]):
+            break
+        argv = [sys.executable, "-c", launcher, "train", "--preset", "casia_arcface", *ov,
+                f"train.checkpoint_dir={tmp}/{tag}", "--max-steps", str(steps),
+                *(["--resume"] if resume else [])]
+        outs = _launch_ranks(argv, {**env, "CRFR_COORDINATOR": f"file://{tmp}/pg_cli{i}"},
+                             "cli", timeout=300)
+        finals = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+        if finals != [{"final_step": steps}] * DIST_WORLD or (
+                resume and not all("resumed from step 4" in e for _, e in outs)):
+            raise AssertionError(f"distributed cli: {finals}, {[e[-400:] for _, e in outs]}")
+        runs[f"{tag}{steps}"] = outs
+    wall = time.perf_counter() - t0
+    a, b = (Checkpointer(f"{tmp}/{t}").restore(step=6) for t in ("a", "b"))
+    diff_ab = _max_diff(a, b)
+    diff_bc = 0.0
+    if "c6" in runs:
+        diff_bc = _max_diff(b, Checkpointer(f"{tmp}/c").restore(step=6))
+        if diff_ab > diff_bc:
+            raise AssertionError(f"distributed cli: 4 + --resume to 6 differs from 6 straight "
+                                 f"by {diff_ab}, beyond two straight runs' {diff_bc}")
+    rows = [json.loads(ln) for ln in Path(f"{tmp}/a/metrics.jsonl").read_text().splitlines()]
+    logged = [r["step"] for r in rows if "loss" in r]
+    states = sorted(p.name for p in Path(f"{tmp}/a").glob("data_state*.json"))
+    if logged != [1, 2, 3, 4, 5, 6] or states != ["data_state_0.json", "data_state_1.json"]:
+        raise AssertionError(f"distributed cli: metrics rows {logged}, data states {states}")
+    return {"resumed_equals_straight": diff_ab == 0.0, "resumed_vs_straight_max": diff_ab,
+            "straight_spread_max": diff_bc if "c6" in runs else None,
+            "metrics_rows_by_rank0": len(rows), "data_states": states,
+            "wall_s": wall, "launch_pairs": len(runs)}
+
+
+def phase_distributed(gallery_ref: dict) -> dict:
+    """Two rank processes on the one card through the port's launch
+    variables (gloo: see ``_dist_env``), against the one-process runs in
+    this call: (a) the gallery phase's bank row-sharded, (b) the preset's
+    training at full width as data=2 and as model=2 (the class-sharded
+    head), float32 against the one-process trainer, then bf16 at batch
+    512, (c) the train CLI's resume."""
+    from crfr_torch.data.synthetic import SyntheticFaces
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the gallery
+        np.savez(f"{tmp}/gallery_in.npz", probes=gallery_ref["probes"])
+        ranks = _run_rank_case("gallery", tmp)
+        want_s, want_l, planted = gallery_ref["s"], gallery_ref["l"], gallery_ref["planted"]
+        for r, out in enumerate(ranks):
+            err = float(np.abs(out["s"] - want_s).max())
+            if out["launches"] != 1 or out["rows"] != BANK_M // DIST_WORLD:
+                raise AssertionError(f"distributed gallery: rank {r} launched bank_tilemax "
+                                     f"{out['launches']} times on {out['rows']} rows")
+            if not (err <= 1e-6 and _same_outside_ties(want_s, want_l, out["s"], out["l"])):
+                raise AssertionError(f"distributed gallery: rank {r} differs from the "
+                                     f"one-process fused scan (scores {err})")
+            if not np.array_equal(out["l"][:, 0], planted):
+                raise AssertionError(f"distributed gallery: rank {r} top-1 misses planted rows")
+        gallery = {"launches_by_rank": [o["launches"] for o in ranks],
+                   "rows_by_rank": [o["rows"] for o in ranks],
+                   "max_abs_score_err": max(float(np.abs(o["s"] - want_s).max()) for o in ranks),
+                   "top1_is_planted": True,
+                   "first_call_s_by_rank": [o["first_call_s"] for o in ranks],
+                   "local_scan_ms_by_rank": [o["local_scan_ms"] for o in ranks],
+                   "merge_ms_by_rank": [o["merge_ms"] for o in ranks]}
+
+        # (b) training at full width
+        faces = SyntheticFaces(num_classes=64, image_size=S, seed=0)
+        rng = np.random.default_rng(13)
+        batches = []
+        for _ in range(DIST_F32_STEPS):
+            x, y = faces.sample(rng, DIST_F32_B)
+            batches.append((torch.from_numpy(x.astype(np.uint8)),
+                            torch.from_numpy(y.astype(np.int64) * 165)))    # over all 10,572
+        torch.save({"batches": batches, "ov": DIST_F32_OV, "layouts": list(DIST_LAYOUTS),
+                    "bf16": True}, f"{tmp}/train_in.pt")
+        ref = _dist_f32_reference(batches)
+        t0 = time.perf_counter()
+        ranks = _run_rank_case("train", tmp, timeout=400)
+        train_wall = time.perf_counter() - t0
+        train = {}
+        for name in DIST_LAYOUTS:
+            got = torch.load(f"{tmp}/state_{name}.pt", weights_only=True)
+            rels = [abs(g["loss"] - w["loss"]) / abs(w["loss"])
+                    for g, w in zip(ranks[0][name]["f32_metrics"], ref["metrics"])]
+            rels_g = [abs(g["grad_norm"] - w["grad_norm"]) / abs(w["grad_norm"])
+                      for g, w in zip(ranks[0][name]["f32_metrics"], ref["metrics"])]
+            rel = max(rels)
+            worst = max(((a.float() - ref["state"][k].float()).abs()
+                         - (1e-4 + 1e-3 * ref["state"][k].float().abs())).max().item()
+                        for k, a in got.items())
+            same = ranks[0][name]["f32_metrics"] == ranks[1][name]["f32_metrics"]
+            if not (rel <= 1e-4 and worst <= 0 and same):
+                raise AssertionError(f"distributed train {name}: float32 against one process: "
+                                     f"loss rel {rel}, parameters beyond rtol 1e-3 / atol 1e-4 "
+                                     f"by {worst}, ranks agree {same}")
+            per_rank = [o[name] for o in ranks]
+            for r, o in enumerate(per_rank):
+                want = {"fused_degrade_normalize": 0, LOWS_NAME: DIST_BF16_STEPS,
+                        "fused_resize_normalize": 0}
+                if o["launches"] != want or o["extract_launches"] != {
+                        "fused_degrade_normalize": 1, LOWS_NAME: 0, "fused_resize_normalize": 0}:
+                    raise AssertionError(f"distributed train {name}: rank {r} launched "
+                                         f"{o['launches']} in {DIST_BF16_STEPS} steps and "
+                                         f"{o['extract_launches']} in one split extract")
+                if not np.isfinite(o["bf16_loss"]) or o["extract_cos_min_vs_whole"] < 0.999:
+                    raise AssertionError(f"distributed train {name}: rank {r} bf16 loss "
+                                         f"{o['bf16_loss']}, split extract cosine "
+                                         f"{o['extract_cos_min_vs_whole']}")
+            train[name] = {"mesh": list(DIST_LAYOUTS[name]), "w_local": per_rank[0]["w_local"],
+                           "f32_loss_rel_vs_one_process_by_step": rels,
+                           "f32_grad_norm_rel_vs_one_process_by_step": rels_g,
+                           "f32_param_excess": worst,
+                           "bf16_ms_per_step_by_rank": [o["bf16_ms_per_step"] for o in per_rank],
+                           "bf16_loss": per_rank[0]["bf16_loss"],
+                           "peak_bytes_by_rank": [o["peak_bytes"] for o in per_rank],
+                           "lows_launches_by_rank": [o["launches"][LOWS_NAME] for o in per_rank],
+                           "extract_cos_min_vs_whole": min(o["extract_cos_min_vs_whole"]
+                                                           for o in per_rank),
+                           "launches": per_rank[0]["launches"],
+                           "extract_launches": per_rank[0]["extract_launches"]}
+
+        # (c) the CLI
+        cli = _dist_cli(tmp)
+    return {"phase": "distributed", "ranks": DIST_WORLD, "backend": "gloo",
+            "gallery": gallery, "train": train, "train_wall_s": train_wall, "cli": cli,
+            "f32_batch": DIST_F32_B, "f32_steps": DIST_F32_STEPS, "bf16_batch": TRAIN_B,
+            "bf16_steps": DIST_BF16_STEPS, "wall_s": time.perf_counter() - t_phase,
+            "launches": {"gallery": {"bank_tilemax": gallery["launches_by_rank"][0]},
+                         **{f"train_{n}": t["launches"] for n, t in train.items()},
+                         **{f"extract_{n}": t["extract_launches"] for n, t in train.items()}}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--rank"]:                  # a rank process of phase 24
+        return rank_main(*sys.argv[2:4])
+    only = sys.argv[2:3] if sys.argv[1:2] == ["--only"] else []
     from crfr_torch.ops import _build
     from crfr_torch.ops import bank_scan as bs
     from crfr_torch.ops import fused_preprocess as fp
@@ -3072,6 +3459,10 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0})
 
+    if only == ["distributed"]:         # phase 24 alone, with the gallery it compares with
+        emit(phase_gallery(bs))
+        emit({**phase_distributed(GALLERY_REF), "card": smi})
+        return 0
     kernels = phase_kernels(fp) + [phase_kernels_bank(bs), phase_kernels_lows(fp)]
     emit({"phase": "kernels", "cases": sum(len(k["cases"]) for k in kernels)})
     embed, state = phase_embed(fp)
@@ -3129,6 +3520,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     eval_cli = phase_eval_cli(fp, bs)
     emit(eval_cli)
+    distributed = phase_distributed(GALLERY_REF)
+    emit({**distributed, "card": smi})
     # launches on each kernel's own main path: embed for the int form of the
     # preprocessing kernel, the gallery scan for bank_tilemax, a train step
     # for the form with a low per image, an SR train step for the resize
@@ -3147,7 +3540,10 @@ def main() -> int:
              "export_hallucinated": export["hallucinated"]["launches"],
              "serve_artifact": serve_artifact["launches"],
              **({f"eval_cli_{k}": v for k, v in eval_cli["launches"].items()}
-                if eval_cli["run"] else {})}
+                if eval_cli["run"] else {}),
+             # per rank of the two-rank phase: one bank_tilemax a rank, one
+             # kernel 1' a rank a step, one kernel 1 a rank a split extract
+             **{f"distributed_{k}": v for k, v in distributed["launches"].items()}}
     own = {"bank_tilemax": gallery, LOWS_NAME: train, "fused_resize_normalize": sr_train}
     for k in kernels:
         k["launches"] = own.get(k["name"], embed)["launches"][k["name"]]

@@ -51,6 +51,20 @@
 Each command but ``pack`` and ``serve-http`` takes ``--device cuda|cpu``,
 ``--preset P`` and key=value overrides.
 
+More than one device: one process per device, launched by ``torchrun
+--nproc-per-node N -m crfr_torch ...`` or with the ``CRFR_COORDINATOR``,
+``CRFR_NUM_PROCESSES`` and ``CRFR_PROCESS_ID`` environment
+(``parallel.multihost``; NCCL between cards, gloo on the CPU). ``train``,
+``train-distill`` and ``train-sr`` then train on the (``mesh.data``,
+``mesh.model``) mesh, whose size must be the number of processes: each
+process draws its own slab of ``batch_size / N`` rows (records: its
+contiguous shard of them, ``data_state_{rank}.json`` its resume state;
+synthetic: the generator of (seed + rank, k)), rank 0 alone writes the
+metrics and the checkpoints, and an in-loop eval runs whole on every rank
+on its own copy of the weights. ``--recycle-every-steps`` runs in one
+process only. The eval and ``match`` commands split their batches and
+shard their galleries over the processes.
+
 ``train`` writes JSONL metrics and checkpoints under ``train.checkpoint_dir``
 (``data_state.json`` beside them when it reads records), resumes from the
 latest checkpoint with ``--resume``, and prints ``{"final_step": N}``. It
@@ -133,14 +147,62 @@ def _split_overrides(extra: list[str]) -> tuple[list[str], list[str]]:
     return kv, [a for a in extra if a not in kv]
 
 
-def _synthetic_batches(cfg, start: int, stop: int):
+def _synthetic_batches(cfg, start: int, stop: int, world=None):
+    """Synthetic batch k from the generator seeded (seed, k); with ``world``
+    = (rank, ranks) of a multi-process run, this rank's slab of
+    batch_size / ranks rows from (seed + rank, k), ``crfr``'s convention of
+    distinct per-process draws."""
     import numpy as np
 
     from crfr_torch.data.synthetic import SyntheticFaces
 
+    rank, n = world or (0, 1)
     synth = SyntheticFaces(num_classes=cfg.data.num_classes, image_size=cfg.data.image_size)
     for step in range(start, stop):
-        yield synth.sample(np.random.default_rng([cfg.train.seed, step]), cfg.train.batch_size)
+        yield synth.sample(np.random.default_rng([cfg.train.seed + rank, step]),
+                           _local_batch(cfg, n))
+
+
+def _distributed(device) -> tuple[int, int]:
+    """Start the process group when the environment describes a
+    multi-process launch (``parallel.multihost``); → (rank, world)."""
+    from crfr_torch.parallel.multihost import (maybe_initialize_distributed, process_count,
+                                               process_index)
+
+    maybe_initialize_distributed(device)
+    return process_index(), process_count()
+
+
+def _rank0_metrics(path: str, args, rank: int):
+    """The JSONL (and TensorBoard) metrics writer on rank 0, a silent one on
+    the others: every rank appending one file would interleave copies of
+    each row."""
+    from crfr_torch.utils.logging import MetricsWriter
+
+    if rank != 0:
+        return MetricsWriter(stdout=False)
+    return MetricsWriter(path, tensorboard_dir=getattr(args, "tensorboard", "") or None)
+
+
+def _local_batch(cfg, world: int) -> int:
+    if cfg.train.batch_size % world:
+        raise ValueError(f"batch_size {cfg.train.batch_size} must divide over {world} processes")
+    return cfg.train.batch_size // world
+
+
+def _record_source(cfg, rank: int, world: int):
+    """The records of ``data.train_records``, this rank's contiguous shard of
+    them (``process_shard``) in a multi-process run."""
+    from crfr_torch.data.records import SubsetSource, open_source
+    from crfr_torch.parallel.multihost import process_shard
+
+    source = open_source(cfg.data.train_records)
+    if world > 1:
+        lo, hi = process_shard(len(source))
+        source = SubsetSource(source, lo, hi)
+        print(f"rank {rank}/{world}: records [{lo}, {hi}), local batch "
+              f"{_local_batch(cfg, world)}", file=sys.stderr)
+    return source
 
 
 def _recycle_exec(args, cfg, step: int, device) -> None:
@@ -192,30 +254,34 @@ def _bin_eval(args, cfg, metrics, embed_fn, device):
 def cmd_train(args, overrides: list[str]) -> int:
     from crfr_torch.configs import get_config
     from crfr_torch.eval.extract import make_extract_fn
+    from crfr_torch.parallel.mesh import local_snapshot
     from crfr_torch.train.checkpoints import Checkpointer
     from crfr_torch.train.feed import ResumableDeviceFeed, device_feed
     from crfr_torch.train.loop import Trainer
-    from crfr_torch.utils.logging import MetricsWriter
 
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("training in more than one process is not ported yet "
-                                  "(ROADMAP.md item 13.4)")
     cfg = get_config(args.preset, overrides)
     if args.train_records:
         cfg = cfg.override(**{"data.train_records": args.train_records})
-    metrics = MetricsWriter(os.path.join(cfg.train.checkpoint_dir, "metrics.jsonl"),
-                            tensorboard_dir=args.tensorboard or None)
+    rank, world = _distributed(args.device)
+    if args.recycle_every_steps and world > 1:
+        raise ValueError("--recycle-every-steps restarts one process; it does not run "
+                         f"in a run of {world} processes")
+    metrics = _rank0_metrics(os.path.join(cfg.train.checkpoint_dir, "metrics.jsonl"), args,
+                             rank)
     tr = Trainer(cfg, steps_per_epoch=args.steps_per_epoch, metrics=metrics, device=args.device)
     ck = Checkpointer(cfg.train.checkpoint_dir, keep=cfg.train.keep_checkpoints)
     if args.resume and ck.latest_step() is not None:
         tr.state = ck.restore(tr.state)
         print(f"resumed from step {tr.host_step}", file=sys.stderr)
     start = tr.host_step
+    local_bs = _local_batch(cfg, world)
 
-    data_state_path = os.path.join(cfg.train.checkpoint_dir, "data_state.json")
+    # each rank's pipeline walks its own record shard, so its resume state is
+    # its own file (a shared name would be last-writer-wins)
+    data_state_path = os.path.join(cfg.train.checkpoint_dir, "data_state.json" if world == 1
+                                   else f"data_state_{rank}.json")
     if cfg.data.train_records:
         from crfr_torch.data.pipeline import PipelineCfg, train_batches
-        from crfr_torch.data.records import open_source
 
         data_state = None
         if args.resume and start and os.path.exists(data_state_path):
@@ -223,14 +289,15 @@ def cmd_train(args, overrides: list[str]) -> int:
                 saved = json.load(f)
             if saved.get("step") == start:          # exact-match resume only
                 data_state = saved["state"]
-        batches = train_batches(open_source(cfg.data.train_records), PipelineCfg(
-            batch_size=cfg.train.batch_size, seed=cfg.train.seed,
+        batches = train_batches(_record_source(cfg, rank, world), PipelineCfg(
+            batch_size=local_bs, seed=cfg.train.seed,
             random_flip=cfg.data.random_flip, num_workers=args.workers),
             start_step=start, state=data_state)
-        feed = ResumableDeviceFeed(batches, tr.device)
+        feed = ResumableDeviceFeed(batches, tr.device, mesh=tr.mesh, local=True)
     else:
-        feed = device_feed(_synthetic_batches(cfg, start, args.max_steps or start + 1000),
-                           tr.device)
+        feed = device_feed(_synthetic_batches(cfg, start, args.max_steps or start + 1000,
+                                              (rank, world)), tr.device, mesh=tr.mesh,
+                           local=True)
 
     def save(step: int, force: bool = False) -> None:
         ck.save(step, tr.state, cfg.to_json(), force=force)
@@ -238,9 +305,20 @@ def cmd_train(args, overrides: list[str]) -> int:
             with open(data_state_path, "w") as f:
                 json.dump({"step": step, "state": feed.state}, f)
 
-    # the eval function is built once; state_fn hands it the live weights
+    # the eval function is built once; state_fn hands it the live weights. In
+    # a multi-process run every rank evaluates the whole set on its own copy
+    # of the replicated backbone, taken once per trained step, with no
+    # collective: a rank that skipped it would wait alone in the next step
+    state_fn = tr.embed_state
+    if world > 1:
+        snap: dict = {}
+
+        def state_fn():
+            if snap.get("step") != tr.host_step:
+                snap.update(step=tr.host_step, bb=local_snapshot(tr.embed_state()))
+            return snap["bb"]
     in_loop_eval = _bin_eval(args, cfg, metrics, make_extract_fn(
-        tr.backbone_apply, state_fn=tr.embed_state, degrade_to=cfg.data.eval_degrade_size,
+        tr.backbone_apply, state_fn=state_fn, degrade_to=cfg.data.eval_degrade_size,
         resize_mode=cfg.data.resize_mode, flip_fusion=cfg.eval.flip_fusion,
         image_size=cfg.model.input_size, device=tr.device), tr.device)
 
@@ -248,8 +326,8 @@ def cmd_train(args, overrides: list[str]) -> int:
     # the stop is tested after a step, not before the next draw: a batch drawn
     # and not trained would move the saved pipeline state past the last step
     for imgs, labels in ([] if args.max_steps and start >= args.max_steps else feed):
-        m = tr.train_step(imgs, labels)
-        n_img += len(labels)
+        m = tr.train_step(imgs, labels, local=True)
+        n_img += len(labels) * world
         step = tr.host_step
         if step % cfg.train.log_every == 0:
             metrics.write(step, imgs_per_sec=n_img / (time.time() - t0),
@@ -282,41 +360,47 @@ def cmd_train(args, overrides: list[str]) -> int:
 
 def _restore_teacher(ckpt_dir: str, cfg, device):
     """A recognition ``Trainer`` restored from a ``train`` checkpoint, with
-    the checkpoint's own config (``cfg`` where it has none)."""
+    the checkpoint's own config (``cfg`` where it has none), laid out on
+    ``cfg``'s mesh (only its backbone is read)."""
     from crfr_torch.configs import Config
     from crfr_torch.train.checkpoints import Checkpointer
     from crfr_torch.train.loop import Trainer
 
     tck = Checkpointer(ckpt_dir, keep=1)
     tcfg = tck.restore_config()
-    teacher = Trainer(Config.from_dict(tcfg) if tcfg else cfg, device=device)
+    tcfg = Config.from_dict(tcfg) if tcfg else cfg
+    teacher = Trainer(tcfg.override(**{"mesh.data": cfg.mesh.data, "mesh.model": cfg.mesh.model}),
+                      device=device)
     teacher.state = tck.restore(teacher.state)
     return teacher
 
 
-def _run_steps(tr, cfg, ck, max_steps: int, step_fn, evaluate=None) -> dict:
+def _run_steps(tr, cfg, ck, max_steps: int, step_fn, evaluate=None, world=(0, 1)) -> dict:
     """Feed ``step_fn(images, labels)`` from ``tr.step`` to ``max_steps``
     (1000 steps from the start when 0): records from the start step on, or
     synthetic batch k from (seed, k); a checkpoint every
     ``checkpoint_every_steps`` and at the end, and ``evaluate(step)`` (when
-    given) every ``eval_every_steps`` after the checkpoint. Returns the last
+    given) every ``eval_every_steps`` after the checkpoint. In a run of
+    ``world`` = (rank, ranks) processes each rank feeds its own slab
+    (``_synthetic_batches``, ``_record_source``). Returns the last
     metrics."""
     from crfr_torch.train.feed import device_feed
 
+    rank, n = world
     start = tr.step
     stop = max_steps or start + 1000
     if cfg.data.train_records:
         from crfr_torch.data.pipeline import PipelineCfg, train_batches
-        from crfr_torch.data.records import open_source
 
-        batches = train_batches(open_source(cfg.data.train_records), PipelineCfg(
-            batch_size=cfg.train.batch_size, seed=cfg.train.seed,
+        batches = train_batches(_record_source(cfg, rank, n), PipelineCfg(
+            batch_size=_local_batch(cfg, n), seed=cfg.train.seed,
             random_flip=cfg.data.random_flip), start_step=start)
     else:
-        batches = _synthetic_batches(cfg, start, stop)
+        batches = _synthetic_batches(cfg, start, stop, world)
     m = {}
     try:
-        for imgs, labels in device_feed(batches, tr.device):
+        for imgs, labels in device_feed(batches, tr.device, mesh=getattr(tr, "mesh", None),
+                                        local=True):
             if tr.step >= stop:
                 break
             m = step_fn(imgs, labels)
@@ -337,14 +421,11 @@ def cmd_train_sr(args, overrides: list[str]) -> int:
     from crfr_torch.train.checkpoints import Checkpointer
     from crfr_torch.train.distill_loop import teacher_from_trainer
     from crfr_torch.train.sr_loop import SRTrainer, perceptual_from_trainer
-    from crfr_torch.utils.logging import MetricsWriter
 
     if args.perceptual > 0 and not args.teacher_ckpt:
         raise ValueError("--perceptual requires --teacher-ckpt")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("training in more than one process is not ported yet "
-                                  "(ROADMAP.md item 13.4)")
     cfg = get_config(args.preset, overrides)
+    rank, world = _distributed(args.device)
     if args.train_records:
         cfg = cfg.override(**{"data.train_records": args.train_records})
     teacher_fn = perceptual_fn = None
@@ -355,8 +436,8 @@ def cmd_train_sr(args, overrides: list[str]) -> int:
             cfg = cfg.override(**{"loss.sr_perceptual_weight": args.perceptual})
             perceptual_fn = perceptual_from_trainer(teacher)
         del teacher
-    metrics = MetricsWriter(os.path.join(cfg.train.checkpoint_dir, "sr_metrics.jsonl"),
-                            tensorboard_dir=args.tensorboard or None)
+    metrics = _rank0_metrics(os.path.join(cfg.train.checkpoint_dir, "sr_metrics.jsonl"),
+                             args, rank)
     tr = SRTrainer(cfg, scale=args.scale, metrics=metrics, teacher_fn=teacher_fn,
                    perceptual_fn=perceptual_fn, bicubic_skip=bool(args.bicubic_skip),
                    lr_g=args.lr_g, lr_d=args.lr_d, schedule=args.schedule,
@@ -367,7 +448,8 @@ def cmd_train_sr(args, overrides: list[str]) -> int:
     if args.resume and ck.latest_step() is not None:
         tr.restore_from(ck)
         print(f"resumed SR from step {tr.step}", file=sys.stderr)
-    m = _run_steps(tr, cfg, ck, args.max_steps, lambda imgs, _: tr.train_step(imgs))
+    m = _run_steps(tr, cfg, ck, args.max_steps, lambda imgs, _: tr.train_step(imgs, local=True),
+                   world=(rank, world))
     metrics.close()
     print(json.dumps({"g_loss": float(m.get("g_loss", float("nan"))),
                       "d_loss": float(m.get("d_loss", float("nan"))),
@@ -380,14 +462,11 @@ def cmd_train_distill(args, overrides: list[str]) -> int:
     from crfr_torch.train.checkpoints import Checkpointer
     from crfr_torch.train.distill_loop import DistillTrainer, teacher_from_trainer
     from crfr_torch.train.sr_loop import SRTrainer, load_sr_apply
-    from crfr_torch.utils.logging import MetricsWriter
 
     if args.sr_finetune and not args.sr_ckpt:
         raise ValueError("--sr-finetune requires --sr-ckpt")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("training in more than one process is not ported yet "
-                                  "(ROADMAP.md item 13.4)")
     cfg = get_config(args.preset, overrides)
+    rank, world = _distributed(args.device)
     if cfg.loss.distill_weight <= 0:
         cfg = cfg.override(**{"loss.distill_weight": args.kd_weight})
     teacher = _restore_teacher(args.teacher_ckpt, cfg, args.device)
@@ -401,8 +480,8 @@ def cmd_train_distill(args, overrides: list[str]) -> int:
     elif args.sr_ckpt:
         sr_fn = load_sr_apply(args.sr_ckpt, cfg, scale=args.sr_scale,
                               bicubic_skip=bool(args.sr_bicubic_skip), device=args.device)
-    metrics = MetricsWriter(os.path.join(cfg.train.checkpoint_dir, "distill_metrics.jsonl"),
-                            tensorboard_dir=args.tensorboard or None)
+    metrics = _rank0_metrics(os.path.join(cfg.train.checkpoint_dir, "distill_metrics.jsonl"),
+                             args, rank)
     st = DistillTrainer(cfg, teacher_from_trainer(teacher), metrics=metrics, sr_fn=sr_fn,
                         sr_scale=args.sr_scale, sr_module=sr_module, sr_lr=args.sr_lr,
                         sr_pixel_weight=args.sr_pixel_weight, device=args.device)
@@ -412,9 +491,13 @@ def cmd_train_distill(args, overrides: list[str]) -> int:
     if args.resume and sck.latest_step() is not None:
         st.load_state_dict(sck.restore(st.state_dict()))
         print(f"resumed student from step {st.step}", file=sys.stderr)
-    # the student's embedding with its residual, on the live weights
-    evaluate = _bin_eval(args, cfg, metrics, st.student_embed_fn(with_residual=True), st.device)
-    m = _run_steps(st, cfg, sck, args.max_steps, st.train_step, evaluate)
+    # the student's embedding with its residual, on the live weights (in a
+    # multi-process run each rank's own copy, taken once per trained step)
+    evaluate = _bin_eval(args, cfg, metrics, st.student_embed_fn(
+        with_residual=True, local_snapshot=world > 1), st.device)
+    m = _run_steps(st, cfg, sck, args.max_steps,
+                   lambda imgs, labels: st.train_step(imgs, labels, local=True), evaluate,
+                   (rank, world))
     metrics.close()
     print(json.dumps({k: float(v) for k, v in m.items()} | {"steps": st.step}), flush=True)
     return 0
@@ -473,9 +556,22 @@ def _embed_fn_from_ckpt(args, overrides: list[str]):
             cfg = cfg.override(**kv)
     else:
         cfg = get_config(args.preset, overrides)
+    _, world = _distributed(args.device)
+    if world > 1 and cfg.mesh.data * cfg.mesh.model != world:
+        # a multi-process eval shards batches and galleries over every rank
+        cfg = cfg.override(**{"mesh.data": world, "mesh.model": 1})
     tr = Trainer(cfg, device=args.device)
     tr.state = ck.restore(tr.state)
     return tr, cfg
+
+
+def _topk_mesh(device="cuda"):
+    """The mesh of a gallery top-k with no model loaded: every rank of a
+    multi-process launch; None for one process."""
+    from crfr_torch.parallel.mesh import make_mesh
+
+    _, world = _distributed(device)
+    return make_mesh(None, "cuda" if device == "cuda" else "cpu") if world > 1 else None
 
 
 def _quantized_backbone(tr, cfg, sample_paths=(), degrade_to: int | None = None):
@@ -542,7 +638,7 @@ def _lr_degrade(args, cfg, sr_apply) -> int | None:
 
 def _extract_kw(tr, cfg) -> dict:
     return dict(resize_mode=cfg.data.resize_mode, flip_fusion=cfg.eval.flip_fusion,
-                image_size=cfg.model.input_size, device=tr.device)
+                image_size=cfg.model.input_size, device=tr.device, mesh=tr.mesh)
 
 
 def _embed_paths(paths, fn, cfg):
@@ -617,6 +713,7 @@ def cmd_match(args, overrides: list[str]) -> int:
 
         p = np.load(args.probe_npy)
         cfg = get_config(args.preset, overrides)
+        mesh = _topk_mesh(args.device)
     else:
         if not (args.ckpt and args.list):
             raise ValueError("match needs --probe-npy, or --ckpt and a --list of probe images")
@@ -630,8 +727,9 @@ def cmd_match(args, overrides: list[str]) -> int:
         fn = make_extract_fn(_backbone_apply(tr, cfg, args, paths, degrade), degrade_to=degrade,
                              sr_apply=sr_apply, **_extract_kw(tr, cfg))
         p = _embed_paths(paths, fn, cfg)
+        mesh = tr.mesh
     scores, labels = topk_matches(p, g, glab, k=args.k, block=cfg.eval.gallery_block,
-                                  approx=_approx_flag(args), device=args.device)
+                                  mesh=mesh, approx=_approx_flag(args), device=args.device)
     out = [{"labels": labels[i].tolist(), "scores": [round(float(v), 4) for v in scores[i]]}
            for i in range(len(labels))]
     print(json.dumps({"matches": out, "k": args.k, "gallery": len(g)}), flush=True)
@@ -685,7 +783,8 @@ def cmd_eval_scface(args, overrides: list[str]) -> int:
     g = _embed_paths(split.gallery_paths, fn, cfg)
     p = _embed_paths(split.probe_paths, fn_p, cfg)
     res = closed_set_identification(p, g, split.probe_labels, split.gallery_labels,
-                                    block=cfg.eval.gallery_block, device=tr.device)
+                                    block=cfg.eval.gallery_block, mesh=tr.mesh,
+                                    device=tr.device)
     print(json.dumps({"rank1": res.rank1, "cmc": res.cmc.tolist()}), flush=True)
     return 0
 
@@ -717,7 +816,7 @@ def cmd_eval_openset(args, overrides: list[str]) -> int:
         plab = np.load(args.probe_labels_npy)
         mated = np.load(args.mated_npy).astype(bool)
         cfg = get_config(args.preset, overrides)
-        device = args.device
+        device, mesh = args.device, _topk_mesh(args.device)
     else:
         from crfr_torch.data.datasets import open_set_split
         from crfr_torch.eval.extract import make_extract_fn
@@ -737,10 +836,10 @@ def cmd_eval_openset(args, overrides: list[str]) -> int:
         g = _embed_paths(split.gallery_paths, fn_g, cfg)
         p = _embed_paths(split.probe_paths, fn_p, cfg)
         glab, plab, mated = split.gallery_labels, split.probe_labels, split.probe_mated
-        device = tr.device
+        device, mesh = tr.device, tr.mesh
     res = open_set_identification(p, g, plab, glab, mated, cfg.eval.fpir_targets,
                                   max_rank=args.max_rank, block=cfg.eval.gallery_block,
-                                  approx=_approx_flag(args), device=device)
+                                  mesh=mesh, approx=_approx_flag(args), device=device)
     print(json.dumps({"rank1": res.rank1, "cmc": res.cmc.tolist(),
                       "tpir_at_fpir": res.tpir_at_fpir}), flush=True)
     return 0
@@ -807,7 +906,7 @@ def cmd_eval_ijbc(args, overrides: list[str]) -> int:
             np.load(args.g1_tpl_npy), np.load(args.g1_subjects_npy),
             np.load(args.g2_tpl_npy), np.load(args.g2_subjects_npy),
             fpir_targets=cfg.eval.fpir_targets, block=cfg.eval.gallery_block,
-            approx=_approx_flag(args), device=args.device)
+            mesh=_topk_mesh(args.device), approx=_approx_flag(args), device=args.device)
         print(json.dumps(_ijbc_1n_json(*res)), flush=True)
         return 0
 
@@ -841,7 +940,7 @@ def cmd_eval_ijbc(args, overrides: list[str]) -> int:
         out.update(_ijbc_1n_json(*ijbc_1n_two_gallery(
             p_emb, p_subj, g1_emb, g1_subj, g2_emb, g2_subj,
             fpir_targets=cfg.eval.fpir_targets, block=cfg.eval.gallery_block,
-            approx=_approx_flag(args), device=tr.device)))
+            mesh=tr.mesh, approx=_approx_flag(args), device=tr.device)))
     if not out:
         print("eval-ijbc: nothing to do: pass --meta and --pairs (1:1) and/or "
               "--probe-meta, --gallery-g1 and --gallery-g2 (1:N)", file=sys.stderr)
@@ -949,7 +1048,7 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(prog="crfr_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("train", help="ArcFace training on one device")
+    p = sub.add_parser("train", help="ArcFace training (one process per device)")
     p.add_argument("--preset", default="casia_arcface")
     p.add_argument("--max-steps", type=int, default=0,
                    help="stop at this global step (0: 1000 synthetic steps, or the records "
@@ -968,7 +1067,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_train)
 
-    p = sub.add_parser("train-sr", help="hallucinator (SR GAN) training on one device")
+    p = sub.add_parser("train-sr", help="hallucinator (SR GAN) training (one process per device)")
     p.add_argument("--preset", default="casia_arcface")
     p.add_argument("--scale", type=int, default=8)
     p.add_argument("--max-steps", type=int, default=0,
@@ -998,7 +1097,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.set_defaults(fn=cmd_train_sr)
 
-    p = sub.add_parser("train-distill", help="a student with residual KD on one device")
+    p = sub.add_parser("train-distill", help="a student with residual KD (one process per device)")
     p.add_argument("--preset", default="casia_arcface")
     p.add_argument("--teacher-ckpt", required=True,
                    help="recognition checkpoint (of train), restored with its own config")
@@ -1192,7 +1291,15 @@ def main(argv: list[str] | None = None) -> int:
     overrides, unknown = _split_overrides(extra)
     if unknown:
         ap.error(f"unrecognized arguments: {' '.join(unknown)}")
-    return args.fn(args, overrides)
+    try:
+        return args.fn(args, overrides)
+    finally:
+        # a rank that ends, by an exception or not, leaves the group, so the
+        # others fail in their next collective and the job ends
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -28,19 +28,21 @@ def device_of(ref, device: str | torch.device | None = None) -> torch.device:
     return resolve_device(device)
 
 
-def refuse_mesh(mesh, what: str) -> None:
-    """Raise ``NotImplementedError`` for a mesh of more than one device: the
-    sharded paths are not ported. A mesh of one device (a
-    ``torch.distributed.DeviceMesh``, or any object whose ``devices`` array
-    has size 1) runs the single-device path, as in ``crfr``; a mesh whose
-    size cannot be read raises too."""
-    if mesh is None:
-        return
-    size = getattr(mesh, "size", None)
-    n = size() if callable(size) else getattr(getattr(mesh, "devices", None), "size", None)
-    if n != 1:
-        raise NotImplementedError(f"mesh ({what}) over more than one device is not "
-                                  "ported yet; call without it for the single-device path")
+def mesh_world(mesh) -> int:
+    """The mesh dispatch: 1 for no mesh or a mesh of one device (the
+    single-device path, as in ``crfr``), else the mesh's size, which must be
+    the size of the default process group (the sharded paths run one
+    process per device). Raises ValueError when the two differ and
+    TypeError when the mesh's size cannot be read."""
+    from crfr_torch.parallel.mesh import mesh_size, world_size
+
+    n = mesh_size(mesh)
+    if n == 1:
+        return 1
+    if n != world_size():
+        raise ValueError(f"a mesh of {n} devices needs a process group of {n} ranks, "
+                         f"this one has {world_size()}")
+    return n
 
 
 @contextlib.contextmanager

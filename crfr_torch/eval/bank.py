@@ -18,6 +18,12 @@ goes through the fused three-phase path (``ops/bank_scan.py``, the
 ``streaming_topk_q``. ``crfr`` defaults to its scan because its Pallas
 kernel's DMA on the TPU read the bank slower than XLA's own scan; that
 reason does not carry over to the H100 (PERF.md has both paths' times).
+
+On a ``mesh`` of more than one device (``parallel.mesh``, one process per
+device) each rank uploads only its contiguous slice of the bank's rows
+and scans it, through the fused path on CUDA when the slice holds at
+least 128·k rows (one ``bank_tilemax`` launch per rank per scan); the k
+candidates of every rank are merged as in ``identification.topk_matches``.
 """
 
 from __future__ import annotations
@@ -28,9 +34,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from crfr_torch.device import device_of, refuse_mesh, resolve_device
+from crfr_torch.device import device_of, mesh_world, resolve_device
 from crfr_torch.eval.identification import (_approx_cfg, _as_tensor, _auto_block,
-                                            _block_topk, _log_exact_once, _merge)
+                                            _block_topk, _log_exact_once, _merge, _pad_rows,
+                                            merge_shards, shard_rows)
 from crfr_torch.ops.bank_scan import MAX_D, bank_topk_fused
 
 FUSED_TILE = 128
@@ -331,23 +338,28 @@ def topk_matches_bank(probe_emb, bank: QuantBank, k: int, block: int = 0, mesh=N
     ``fused``: None takes the device's default, the fused three-phase path
     through the ``bank_tilemax`` kernel on CUDA and the scan on the CPU;
     True or False chooses. The fused path needs M ≥ 128·k rows; smaller banks
-    always scan. ``block <= 0`` sizes the scan block from the probe count."""
+    always scan. ``block <= 0`` sizes the scan block from the probe count.
+    A ``mesh`` of more than one device shards the rows over the process
+    group's ranks, each scanning its own slice by the same rule; every rank
+    returns the same result."""
     view = getattr(bank, "view", None)
     if callable(view):
         bank = view()
-    refuse_mesh(mesh, "the row-sharded gallery scan")
+    world = mesh_world(mesh)
     dev = device_of(bank.q, device)
-    q = _as_tensor(bank.q, dev, torch.int8)
-    sc = _as_tensor(bank.scale, dev, torch.float32)
-    lbl = _as_tensor(bank.labels, dev, torch.int64)
+    lo, hi, m = shard_rows(len(bank), world)           # this rank's rows, padded
+    q = _pad_rows(_as_tensor(bank.q[lo:hi], dev, torch.int8), m)
+    sc = _pad_rows(_as_tensor(bank.scale[lo:hi], dev, torch.float32), m)
+    lbl = _pad_rows(_as_tensor(bank.labels[lo:hi], dev, torch.int64), m, -1)
     p = _as_tensor(probe_emb, dev, torch.float32)
     if fused is None:
         fused = dev.type == "cuda"
-    m = int(q.shape[0])
     if fused and m >= FUSED_TILE * k:
         s, lab = bank_topk_fused(p, q, sc, lbl, k=k, tile=FUSED_TILE)
     else:
         block = _auto_block(block, int(p.shape[0]))
         s, lab = streaming_topk_q(p, q, sc, lbl, k=k, block=min(block, max(m, 1)),
                                   approx=approx)
+    if world > 1:
+        s, lab = merge_shards(s, lab, k)
     return s.cpu().numpy(), lab.cpu().numpy()

@@ -19,9 +19,10 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from crfr_torch.device import refuse_mesh, resolve_device
+from crfr_torch.device import mesh_world, resolve_device
 from crfr_torch.ops.fused_preprocess import fused_degrade_normalize, fused_resize_normalize
 from crfr_torch.ops.normalize import normalize
+from crfr_torch.parallel.mesh import all_gather_rows, maybe_shard_batch
 
 
 def make_extract_fn(backbone_apply: Callable, degrade_to: int | None = None,
@@ -41,12 +42,17 @@ def make_extract_fn(backbone_apply: Callable, degrade_to: int | None = None,
     ``sr_apply`` (normalized LR → normalized HR pixels, e.g.
     ``train.sr_loop.load_sr_apply``) routes the probe through the
     hallucinator: bicubic↓ to ``degrade_to`` → G ↑ → backbone, in place of
-    the bicubic down→up degradation; it needs ``degrade_to``. A ``mesh`` of
-    more than one device is not ported yet.
+    the bicubic down→up degradation; it needs ``degrade_to``.
+
+    ``mesh`` of more than one device (``parallel.mesh``): a batch that
+    divides the process group's size is split, each rank embedding its
+    rows (one preprocessing launch on its slice) and an all-gather
+    rebuilding the batch on every rank; another batch is embedded whole on
+    every rank, as ``crfr`` replicates it.
     """
     if sr_apply is not None and degrade_to is None:
         raise ValueError("sr_apply needs degrade_to (the LR size)")
-    refuse_mesh(mesh, "sharded extraction")
+    world = mesh_world(mesh)
     if flip_fusion not in ("sum", "concat"):
         raise ValueError(f"unknown flip fusion {flip_fusion!r}")
     dev = resolve_device(device)
@@ -59,10 +65,18 @@ def make_extract_fn(backbone_apply: Callable, degrade_to: int | None = None,
 
     @torch.inference_mode()
     def f(images) -> torch.Tensor:
-        x = torch.as_tensor(images).to(dev)
-        if x.ndim != 4 or tuple(x.shape[1:]) != (image_size, image_size, 3):
-            raise ValueError(f"expected (B, {image_size}, {image_size}, 3), "
-                             f"got {tuple(x.shape)}")
+        if not hasattr(images, "shape"):
+            images = np.asarray(images)
+        shape = tuple(images.shape)
+        if len(shape) != 4 or shape[1:] != (image_size, image_size, 3):
+            raise ValueError(f"expected (B, {image_size}, {image_size}, 3), got {shape}")
+        split = False
+        if world > 1:
+            images, split = maybe_shard_batch(mesh, images)
+        emb = embed(torch.as_tensor(images).to(dev))
+        return all_gather_rows(emb, None) if split else emb
+
+    def embed(x: torch.Tensor) -> torch.Tensor:
         if sr_apply is not None:
             x = sr_apply(fused_resize_normalize(x.contiguous(), (degrade_to, degrade_to),
                                                 resize_mode, out_dtype=torch.float32))
@@ -79,7 +93,6 @@ def make_extract_fn(backbone_apply: Callable, degrade_to: int | None = None,
         return emb
 
     return f
-
 
 
 def _host(emb) -> np.ndarray:

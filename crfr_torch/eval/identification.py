@@ -21,8 +21,11 @@ Differences from ``crfr``:
 - ``approx`` is accepted and decoded by ``_approx_cfg``, but selection stays
   exact: PyTorch has no ``approx_max_k``, and an exact top-k meets any recall
   target. The first such call logs it once.
-- A ``mesh`` of more than one device (the row-sharded scan) is not
-  ported and raises; a one-device mesh scans on the one device.
+- A ``mesh`` of more than one device is a ``DeviceMesh`` over the ranks
+  of the process group, one per device (``parallel.mesh``): each rank
+  scans its contiguous slice of the gallery rows and the k candidates of
+  every rank are gathered in rank order and merged; every rank returns the
+  same result. A one-device mesh scans on the one device.
 - The block products are f32 ``torch.matmul`` with TF32 off (PyTorch's
   default for matmul), where ``crfr`` uses ``Precision.HIGHEST``.
 """
@@ -36,7 +39,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from crfr_torch.device import device_of, refuse_mesh
+from crfr_torch.device import device_of, mesh_world
 
 log = logging.getLogger(__name__)
 
@@ -148,6 +151,38 @@ def streaming_topk(probe_emb: torch.Tensor, gallery_emb: torch.Tensor,
     return top_s, top_l
 
 
+def merge_shards(s: torch.Tensor, lab: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The top-k over every rank's (N, k) candidates, gathered in rank order:
+    the same (scores, labels) on every rank."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    parts_s = [torch.empty_like(s) for _ in range(world)]
+    parts_l = [torch.empty_like(lab) for _ in range(world)]
+    dist.all_gather(parts_s, s.contiguous())
+    dist.all_gather(parts_l, lab.contiguous())
+    top_s, idx = top_k(torch.cat(parts_s, dim=1), k)
+    return top_s, torch.gather(torch.cat(parts_l, dim=1), 1, idx)
+
+
+def shard_rows(m: int, world: int) -> tuple[int, int, int]:
+    """(start, stop, rows per rank) of this rank's slice of m gallery rows,
+    padded to a multiple of the world (the padding is label −1); (0, m, m)
+    for one process."""
+    from crfr_torch.parallel.multihost import process_index
+
+    per = -(-m // world)
+    lo = process_index() * per if world > 1 else 0
+    return min(lo, m), min(lo + per, m), per
+
+
+def _pad_rows(x: torch.Tensor, rows: int, value=0) -> torch.Tensor:
+    if x.shape[0] == rows:
+        return x
+    pad = x.new_full((rows - x.shape[0], *x.shape[1:]), value)
+    return torch.cat([x, pad])
+
+
 def _auto_block(block: int, n_probes: int) -> int:
     """Scan block size: large blocks amortize the per-block overhead, while
     the (N, block) f32 score buffer stays at most 64M elements (256 MB)."""
@@ -166,23 +201,32 @@ def topk_matches(probe_emb, gallery_emb, gallery_labels, k: int, block: int = 0,
     ``topk_matches_bank`` with the same contract, and ``gallery_labels`` (if
     not None) overrides the bank's labels. Runs on ``device``, by default the
     gallery's own device when it is a tensor, else CUDA. ``block <= 0``
-    sizes the scan block from the probe count."""
+    sizes the scan block from the probe count.
+
+    A ``mesh`` of more than one device shards the gallery rows over the
+    process group's ranks (``crfr``'s ``sharded_topk``): each rank copies
+    only its contiguous slice (``shard_rows``) to its device and scans it,
+    then ``merge_shards``; every rank returns the same result."""
     from crfr_torch.eval.bank import QuantBank, topk_matches_bank
 
-    refuse_mesh(mesh, "the row-sharded gallery scan")
+    world = mesh_world(mesh)
     if isinstance(gallery_emb, QuantBank):
         b = gallery_emb
         if gallery_labels is not None:
             b = QuantBank(b.q, b.scale, np.asarray(gallery_labels, np.int64))
-        return topk_matches_bank(probe_emb, b, k=k, block=block, approx=approx,
+        return topk_matches_bank(probe_emb, b, k=k, block=block, mesh=mesh, approx=approx,
                                  device=device)
     dev = device_of(gallery_emb, device)
-    g = _as_tensor(gallery_emb, dev)
     p = _as_tensor(probe_emb, dev)
-    lbl = _as_tensor(gallery_labels, dev, torch.int64)
     block = _auto_block(block, int(p.shape[0]))
-    s, lab = streaming_topk(p, g, lbl, k=k, block=min(block, max(g.shape[0], 1)),
-                            approx=approx)
+    lo, hi, rows = shard_rows(int(gallery_emb.shape[0]), world)
+    g = _pad_rows(_as_tensor(gallery_emb[lo:hi], dev), rows)
+    labels = (gallery_labels if isinstance(gallery_labels, torch.Tensor)
+              else np.asarray(gallery_labels))
+    lbl = _pad_rows(_as_tensor(labels[lo:hi], dev, torch.int64), rows, -1)
+    s, lab = streaming_topk(p, g, lbl, k=k, block=min(block, max(rows, 1)), approx=approx)
+    if world > 1:
+        s, lab = merge_shards(s, lab, k)
     return s.cpu().numpy(), lab.cpu().numpy()
 
 

@@ -11,9 +11,9 @@ guard (fallback cosθ − m·sin m, or the easy-margin variant).
 
 ``streaming_margin_ce`` computes the same loss over class blocks with a
 running (max, sum-exp, target logit) per example, so the (B, C) logits are
-never held whole in the forward pass. The class-sharded CE
-(``sharded_margin_ce``) is not ported: it needs a mesh of more than one
-device.
+never held whole in the forward pass. ``sharded_margin_ce`` is the
+class-sharded (PartialFC) CE over a mesh's ``model`` axis, one process per
+device: the (B, C) logits are never held whole on any rank.
 """
 
 from __future__ import annotations
@@ -166,8 +166,51 @@ def streaming_margin_ce(emb: torch.Tensor, weight: torch.Tensor, labels: torch.T
         return torch.mean(run_max + torch.log(run_sum) - tgt)
 
 
-def sharded_margin_ce(mesh, **kwargs):
-    """The class-sharded (PartialFC) CE over a mesh's model axis: not
-    ported; it needs a mesh of more than one device."""
-    raise NotImplementedError("sharded_margin_ce needs a mesh of more than one device, "
-                              "which is not ported yet; use the dense or streaming CE")
+def sharded_margin_ce(mesh, *, margin_type: str = "arcface", s: float = 64.0,
+                      m: float = 0.5, easy_margin: bool = False,
+                      num_valid: int | None = None):
+    """The class-sharded CE over ``mesh``'s model axis (``crfr``'s
+    ``sharded_margin_ce``): → ``loss_fn(emb, labels, weight)``.
+
+    ``emb`` (b, D) and ``labels`` (b,) are this rank's rows of the batch
+    (sharded over the whole mesh), ``weight`` (D, C/model) its class shard
+    (shard m holds the global classes [m·C/model, (m+1)·C/model)). ``emb``
+    is gathered over the model group, since ``crfr``'s in_spec is
+    ``P('data', None)``; each rank computes the cosine logits against its
+    columns, the margin only where a label falls in its shard, masks classes
+    ≥ ``num_valid``, and the log-sum-exp reduces with a max all-reduce of
+    the detached local max and sum all-reduces of the exp-sums and of the
+    target logit. Every rank then holds the whole group's per-row loss;
+    ``loss_fn`` returns this rank's share of the global mean, the sum of its
+    own rows' losses over the global batch B = b·P. The shares sum to
+    ``crfr``'s loss, and a backward on every rank (the collectives carry the
+    gradient), with replicated gradients then summed over the world and W's
+    over the data group, gives ``crfr``'s gradient."""
+    from crfr_torch.parallel.mesh import all_gather_rows, all_reduce_max, all_reduce_sum, coords
+
+    group = mesh.get_group("model")
+    shard = coords(mesh)[1]
+    world = mesh.size()
+
+    def loss_fn(emb: torch.Tensor, labels: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        b = emb.shape[0]
+        e = all_gather_rows(emb, group)                       # the data block's rows
+        y = all_gather_rows(labels.long(), group)
+        c_local = weight.shape[1]
+        offset = shard * c_local
+        with true_f32(emb.device):
+            cos = cosine_logits(e, weight)                    # (b·model, C/model) f32
+            cols = torch.arange(c_local, device=e.device)
+            one_hot = (y - offset)[:, None] == cols
+            logits = _apply_margin(cos, one_hot, margin_type=margin_type, m=m,
+                                   easy_margin=easy_margin) * s
+            if num_valid is not None:
+                logits = torch.where((offset + cols < num_valid)[None, :], logits, -math.inf)
+            gmax = all_reduce_max(logits.max(dim=1).values, group)
+            gsum = all_reduce_sum(torch.exp(logits - gmax[:, None]).sum(dim=1), group)
+            zero = torch.zeros((), device=e.device)
+            tgt = all_reduce_sum(torch.where(one_hot, logits, zero).sum(dim=1), group)
+            per_row = gmax + torch.log(gsum) - tgt
+            return per_row[shard * b:(shard + 1) * b].sum() / (b * world)
+
+    return loss_fn

@@ -17,7 +17,10 @@ leaf names and layouts change:
 ``train_state_from_jax`` does the same for a ``crfr`` ``Trainer``'s
 ``params`` and ``batch_stats`` (paths ``backbone/...`` and ``head/weight``):
 a ``state_dict`` for ``crfr_torch.train.loop.FaceTrainModel``, the head's
-W kept as (D, C). ``student_state_from_jax`` does it for the distilled
+W kept as (D, C), or with ``shard`` (a ``parallel.mesh.Sharding``, e.g.
+``class_sharding(mesh)``) as this rank's class shard of it: the state of
+``crfr``'s trainer on a (data, model) mesh lands in the rank that holds
+the same columns. ``student_state_from_jax`` does it for the distilled
 student (``crfr.train.distill_loop.StudentModel``), whose residual branch
 adds ``residual/fc1/kernel`` and ``residual/fc2/kernel`` (transposed),
 their biases, ``residual/prelu/alpha`` and the BN's scale, bias and
@@ -85,10 +88,12 @@ def params_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
 
 
 def train_state_from_jax(flat: Mapping[str, np.ndarray],
-                         modules: tuple[str, ...] = ("backbone",)) -> dict[str, torch.Tensor]:
+                         modules: tuple[str, ...] = ("backbone",),
+                         shard=None) -> dict[str, torch.Tensor]:
     """A ``crfr`` trainer's parameters and BN statistics, keyed by their
     '/'-joined nnx paths, → ``FaceTrainModel.state_dict()``: the submodules
-    ``modules`` through ``params_from_jax``, and the head's W."""
+    ``modules`` through ``params_from_jax``, and the head's W (this rank's
+    columns of it with ``shard``)."""
     sd: dict[str, torch.Tensor] = {}
     taken = {"head/weight"}
     for mod in modules:
@@ -98,14 +103,18 @@ def train_state_from_jax(flat: Mapping[str, np.ndarray],
     rest = set(flat) - taken
     if rest:
         raise KeyError(f"{sorted(rest)}: no counterpart in crfr_torch")
-    sd["head.weight"] = torch.from_numpy(np.array(flat["head/weight"], dtype=np.float32))
+    w = np.array(flat["head/weight"], dtype=np.float32)
+    if shard is not None:
+        w = np.ascontiguousarray(shard.local(w))
+    sd["head.weight"] = torch.from_numpy(w)
     return sd
 
 
-def student_state_from_jax(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+def student_state_from_jax(flat: Mapping[str, np.ndarray], shard=None
+                           ) -> dict[str, torch.Tensor]:
     """A ``crfr`` ``StudentModel``'s parameters and BN statistics →
-    ``distill_loop.StudentModel.state_dict()``."""
-    return train_state_from_jax(flat, ("backbone", "residual"))
+    ``distill_loop.StudentModel.state_dict()`` (W's ``shard`` as above)."""
+    return train_state_from_jax(flat, ("backbone", "residual"), shard)
 
 
 _QUANT_LEAVES = ("w8", "sw", "sx", "bias")

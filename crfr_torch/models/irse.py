@@ -27,6 +27,14 @@ residual block on the backward pass (``torch.utils.checkpoint``), without
 moving the running statistics a second time. For bf16 compute with float32
 master weights, build with ``dtype=torch.float32`` and run under
 ``torch.autocast``, as ``crfr_torch.train.loop`` does.
+
+Over more than one device (``set_global_batch``): in ``crfr`` the batch is
+sharded over the mesh and flax's BN averages over the whole of it. Here
+each BN then all-reduces its per-channel sum and sum of squares over the
+process group before normalising (``_GlobalBatchNorm``: the biased
+variance E[x²] − E[x]² of the global batch, flax's rule, with n the global
+count), and dropout draws its mask for the global batch and keeps this
+rank's rows, so N ranks give one rank's step on the same global batch.
 """
 
 from __future__ import annotations
@@ -66,6 +74,52 @@ def _remat_contexts():
     return contextlib.nullcontext(), _recomputing()
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BN over the global batch of every rank of the default
+    process group: forward and backward each all-reduce 2·C float32 sums.
+    Saves the input (in its own dtype), the mean and 1/σ for the backward,
+    as torch's SyncBatchNorm does, which refuses CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        import torch.distributed as dist
+
+        c = x.shape[1]
+        dims = [0, *range(2, x.ndim)]
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        xf = x.float()
+        sums = torch.cat([xf.sum(dims), (xf * xf).sum(dims)])
+        dist.all_reduce(sums)
+        n = (x.numel() // c) * dist.get_world_size()
+        mean = sums[:c] / n
+        var = (sums[c:] / n - mean * mean).clamp_min(0.0)
+        invstd = torch.rsqrt(var + eps)
+        scale = (invstd * weight.float()).view(shape)
+        y = (xf - mean.view(shape)) * scale + bias.float().view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.mark_non_differentiable(mean, var)
+        ctx.n = n
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        import torch.distributed as dist
+
+        x, weight, mean, invstd = ctx.saved_tensors
+        c = x.shape[1]
+        dims = [0, *range(2, x.ndim)]
+        shape = (1, c) + (1,) * (x.ndim - 2)
+        dyf = dy.float()
+        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        sum_dy = dyf.sum(dims)
+        sum_dy_xhat = (dyf * xhat).sum(dims)
+        tot = torch.cat([sum_dy, sum_dy_xhat])
+        dist.all_reduce(tot)
+        dx = (dyf - (tot[:c] / ctx.n).view(shape) - xhat * (tot[c:] / ctx.n).view(shape)) \
+            * (invstd * weight.float()).view(shape)
+        return dx.to(x.dtype), sum_dy_xhat.to(weight.dtype), sum_dy.to(weight.dtype), None
+
+
 class _FlaxStats:
     """Train-mode BN whose running variance takes the biased batch variance.
 
@@ -73,7 +127,10 @@ class _FlaxStats:
     Handing it ``rv·n/(n−1)`` and scaling its result by (n−1)/n gives
     ``(1−m)·rv + m·var``, flax's update: a few operations on C values and
     no extra pass over the activations. (The kernel gets a copy: autograd
-    keeps what it was given for the backward pass.)"""
+    keeps what it was given for the backward pass.) With ``global_stats``
+    the batch is every rank's (``_GlobalBatchNorm``)."""
+
+    global_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -85,6 +142,14 @@ class _FlaxStats:
                              f"per channel, got input of shape {tuple(x.shape)}")
         # a remat block's recomputation runs the same call on copies it drops
         frozen = getattr(_remat, "recomputing", False)
+        if self.global_stats:
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+            if not frozen:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                    self.running_var.mul_(1 - m).add_(var, alpha=m)
+            return y
         with torch.no_grad():
             rm = self.running_mean.clone() if frozen else self.running_mean
             rv = self.running_var * (n / (n - 1))
@@ -103,14 +168,32 @@ class BatchNorm1d(_FlaxStats, nn.BatchNorm1d):
     pass
 
 
-def _dropout(x: torch.Tensor, p: float, generator: torch.Generator | None) -> torch.Tensor:
+def set_global_batch(model: nn.Module, rank: int = 0, world: int = 1) -> nn.Module:
+    """Train ``model``'s BNs and dropout on the global batch of ``world``
+    ranks of the default process group, of which this rank, ``rank``, holds
+    the rows [rank·b, (rank+1)·b); world 1 is the single-device path."""
+    for m in model.modules():
+        if isinstance(m, _FlaxStats):
+            m.global_stats = world > 1
+        if isinstance(m, IRBackbone):
+            m.batch_shard = (rank, world)
+    return model
+
+
+def _dropout(x: torch.Tensor, p: float, generator: torch.Generator | None,
+             shard: tuple[int, int] = (0, 1)) -> torch.Tensor:
     """flax's ``Dropout``: keep with probability 1−p and scale by 1/(1−p);
-    the mask from ``generator`` (torch's own stream when None)."""
+    the mask from ``generator`` (torch's own stream when None), drawn for
+    the global batch of ``shard`` = (rank, world), of which ``x`` is the
+    rank's rows."""
     if p <= 0.0:
         return x
     if generator is None:
         return F.dropout(x, p, True)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    rank, world = shard
+    b = x.shape[0]
+    keep = torch.rand((b * world, *x.shape[1:]), generator=generator,
+                      device=x.device)[rank * b:(rank + 1) * b] < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -178,6 +261,7 @@ class IRBackbone(nn.Module):
             raise ValueError("input_size must be divisible by 16")
         self.dtype = dtype
         self.remat = remat
+        self.batch_shard = (0, 1)        # (rank, world): see set_global_batch
         self.input_conv = nn.Conv2d(3, 64, 3, 1, 1, bias=False)
         self.input_bn = BatchNorm2d(64, **_BN)
         self.input_prelu = PReLU(64)
@@ -220,7 +304,7 @@ class IRBackbone(nn.Module):
                 x = blk(x)
         x = self.out_bn(x)
         if self.training:
-            x = _dropout(x, self.out_dropout.p, generator)
+            x = _dropout(x, self.out_dropout.p, generator, self.batch_shard)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)   # H·W·C order
         x = self.out_linear(x)
         return self.out_feat_bn(x.to(self.out_feat_bn.weight.dtype))   # float32

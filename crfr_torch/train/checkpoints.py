@@ -8,7 +8,11 @@ from) and the config JSON, so a checkpoint describes itself. The N latest
 are kept. Reads go through ``torch.load(weights_only=True)``.
 
 Writes are synchronous: ``wait`` and ``close`` are there for callers
-written against ``crfr``'s asynchronous checkpointer.
+written against ``crfr``'s asynchronous checkpointer. In a multi-process
+run every rank calls ``save`` with the same whole state (a trainer's
+``state`` gathers its class-sharded W), rank 0 alone writes, and every
+rank leaves ``save`` through a barrier, so a checkpoint is on disk before
+any rank reads the directory again.
 """
 
 from __future__ import annotations
@@ -44,14 +48,22 @@ class Checkpointer:
              force: bool = False) -> bool:
         """Write ``state`` at ``step``; False (and nothing written) when that
         step exists and not ``force``."""
+        import torch.distributed as dist
+
+        group = dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+        if group:                       # every rank tests the file before rank 0 writes it
+            dist.barrier()
         path = self._path(step)
         if os.path.exists(path) and not force:
             return False
-        tmp = f"{path}.tmp.{os.getpid()}"
-        torch.save({"state": state, "config": config_json}, tmp)
-        os.replace(tmp, path)
-        for old in self.steps()[:-self.keep] if self.keep > 0 else []:
-            os.remove(self._path(old))
+        if not group or dist.get_rank() == 0:
+            tmp = f"{path}.tmp.{os.getpid()}"
+            torch.save({"state": state, "config": config_json}, tmp)
+            os.replace(tmp, path)
+            for old in self.steps()[:-self.keep] if self.keep > 0 else []:
+                os.remove(self._path(old))
+        if group:
+            dist.barrier()
         return True
 
     def _load(self, step: int | None) -> dict:

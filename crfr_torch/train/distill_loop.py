@@ -45,7 +45,14 @@ gives the same values and no gradient, with less memory. So in
 ``train-sr`` the identity term adds to the G loss's value and sends no
 gradient to G, as in the reference.
 
-Not ported: ``student_embed_fn(local_snapshot=True)``, the multi-host eval.
+On a mesh (``parallel.mesh``, one process per device) the student trains
+data-parallel as ``Trainer`` does, with the class-sharded CE when
+``mesh.model`` > 1: the teacher's no-grad forward, the student's input
+(kernel 1 or kernel 2 + G) and a trainable G all run on the rank's rows,
+G's BN on the global batch and its gradients summed over the world before
+Adam. ``student_embed_fn(local_snapshot=True)`` evaluates on a rank-local
+copy of the replicated student, taken once per trained step, with no
+collective: the redundant in-training eval on every rank.
 """
 
 from __future__ import annotations
@@ -61,8 +68,10 @@ from crfr_torch.losses.distill import residual_kd_loss
 from crfr_torch.losses.gan import pixel_loss
 from crfr_torch.models.residual import ResidualBranch
 from crfr_torch.ops.fused_preprocess import fused_resize_normalize
+from crfr_torch.models.irse import set_global_batch
 from crfr_torch.ops.normalize import normalize
-from crfr_torch.train.loop import FaceTrainModel, Trainer, _as_tensor
+from crfr_torch.parallel import mesh as pmesh
+from crfr_torch.train.loop import FaceTrainModel, Trainer, _as_tensor, sum_grads
 from crfr_torch.utils.logging import MetricsWriter
 
 
@@ -133,6 +142,7 @@ class DistillTrainer(Trainer):
             from crfr_torch.train.sr_loop import _Adam
 
             self.g = copy.deepcopy(sr_module).to(self.device).train().requires_grad_(True)
+            set_global_batch(self.g, self._rank, self.world)
             self.g_opt = _Adam(self.g.parameters(), lambda _count: sr_lr)
             self.sr_pixel_weight = sr_pixel_weight
 
@@ -175,13 +185,15 @@ class DistillTrainer(Trainer):
             terms["sr_px"] = self.sr_pixel_weight * pixel_loss(x, normalize(raw))
         return terms
 
-    def train_step(self, images, labels, lows=None) -> dict[str, torch.Tensor]:
+    def train_step(self, images, labels, lows=None, local: bool = False
+                   ) -> dict[str, torch.Tensor]:
         """``Trainer.train_step`` on the student's input, then Adam on a
         trainable G. ``lows`` apply to the bicubic path only. Returns device
         scalars ``loss``, ``grad_norm``, ``ce`` and ``kd`` (and ``sr_px``
         with a trainable G)."""
-        m = super().train_step(images, labels, lows)
+        m = super().train_step(images, labels, lows, local)
         if self.g is not None:
+            sum_grads(self.g_opt.params, self.world)
             self.g_opt.apply()
         if self.host_step % self.cfg.train.log_every == 0:
             self.metrics.write(self.host_step, **{k: float(v) for k, v in m.items()})
@@ -229,16 +241,28 @@ class DistillTrainer(Trainer):
     def student_embed_fn(self, with_residual: bool = False,
                          local_snapshot: bool = False) -> Callable:
         """Raw (B, S, S, 3) pixels → the student's embedding (s, or s + r),
-        reading the trainer's live weights at every call."""
-        if local_snapshot:
-            raise NotImplementedError("local_snapshot (every host evaluating on a local "
-                                      "copy of the state) is not ported yet (ROADMAP.md "
-                                      "item 13.4)")
+        reading the trainer's live weights at every call. On a mesh a batch
+        that divides the world is split over the ranks and gathered back
+        (every rank must call), unless ``local_snapshot``: then each rank
+        embeds the whole batch on its own copy of the student, taken once
+        per trained step, with no collective."""
+        snap: dict = {}
+
+        def model() -> StudentModel:
+            if not local_snapshot:
+                return self.model
+            if snap.get("step") != self.host_step:
+                snap.update(step=self.host_step, model=pmesh.local_snapshot(self.model))
+            return snap["model"]
 
         def run(images) -> torch.Tensor:
+            split = False
+            if not local_snapshot:
+                images, split = pmesh.maybe_shard_batch(self.mesh, images)
             x = normalize(_as_tensor(images, self.device))
-            if with_residual:
-                return self.student_apply(self.model, x)
-            return self.backbone_apply(self.model.backbone, x)
+            st = model()
+            emb = (self.student_apply(st, x) if with_residual
+                   else self.backbone_apply(st.backbone, x))
+            return pmesh.all_gather_rows(emb, None) if split else emb
 
         return run

@@ -8,6 +8,12 @@ recorded on that stream, so the allocator does not reuse them early).
 ``depth`` batches are in flight. On the CPU a batch passes through as
 tensors. Tensors already on the device pass through unchanged.
 
+With a ``mesh`` of more than one device (``parallel.mesh``), a batch is
+this rank's rows: ``local=False`` (the default) takes a global batch, of
+which only this rank's rows are copied to the device; ``local=True`` takes
+this rank's slab of the global batch as it is. The step then gets its rows
+either way (``Trainer.train_step(..., local=True)``).
+
 ``ResumableDeviceFeed`` does the same over a ``ResumableBatches`` source
 and keeps ``state`` at the pipeline state after the batch the CONSUMER
 received last, not after the batches drawn ahead, so checkpointing
@@ -23,11 +29,14 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from crfr_torch.parallel.mesh import local_rows
+
 
 class _Putter:
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, mesh=None, local: bool = False):
         self.device = torch.device(device)
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+        self.mesh = None if local else mesh
 
     def _one(self, a) -> torch.Tensor | None:
         if a is None:
@@ -38,7 +47,7 @@ class _Putter:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def put(self, batch) -> tuple:
-        images, labels = batch
+        images, labels = (local_rows(self.mesh, a) for a in batch)
         if labels is not None and not isinstance(labels, torch.Tensor):
             labels = np.asarray(labels, np.int32)
         if self.stream is None:
@@ -60,11 +69,13 @@ class _Putter:
         return images, labels
 
 
-def device_feed(batches: Iterable, device, depth: int = 2) -> Iterator:
+def device_feed(batches: Iterable, device, depth: int = 2, mesh=None,
+                local: bool = False) -> Iterator:
     """(images, labels) host batches → the same as device tensors, with up
     to ``depth`` copies running ahead of the consumer. ``labels`` may be
-    None."""
-    putter = _Putter(device)
+    None. On a ``mesh``: this rank's rows of a global batch, or with
+    ``local`` its own slab as it is."""
+    putter = _Putter(device, mesh, local)
     it = iter(batches)
     with ThreadPoolExecutor(1) as ex:
         q: deque = deque()
@@ -86,12 +97,12 @@ class ResumableDeviceFeed:
     """``device_feed`` over a ``ResumableBatches`` whose ``state`` is the
     pipeline state after the batch the consumer received last."""
 
-    def __init__(self, batches, device, depth: int = 2):
+    def __init__(self, batches, device, depth: int = 2, mesh=None, local: bool = False):
         self._batches = batches
         self._it = iter(batches)
         self._ex = ThreadPoolExecutor(1)
         self._q: deque = deque()
-        self._putter = _Putter(device)
+        self._putter = _Putter(device, mesh, local)
         self.state = batches.get_state()
         for _ in range(max(depth, 1)):
             self._prefetch()

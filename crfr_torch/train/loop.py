@@ -31,8 +31,21 @@ Nothing on the step's path reads a value back to the host: ``host_step``
 mirrors the step count, and the metrics stay device tensors until a caller
 asks for them.
 
-Not ported: more than one device (the class-sharded CE and any mesh of
-more than one device raise ``NotImplementedError``).
+More than one device (``cfg.mesh`` data·model > 1, or a ``mesh``): one
+process per device on a ``torch.distributed`` group (``parallel.mesh``).
+The batch is sharded over the whole mesh in rank order; parameters are
+replicated (broadcast from rank 0 once), except the head's W and its
+momentum, which are class-sharded over ``model`` and padded to a multiple
+of it (the padding classes masked out of every CE by ``num_valid``, as in
+``crfr``). ``ce_impl='sharded'`` (``auto`` with model > 1) is the
+class-sharded CE. BN statistics and dropout are those of the global batch
+(``models.irse.set_global_batch``), and the lows are drawn for the global
+batch from (seed, step), each rank taking its rows, so N ranks give one
+rank's step on the same global batch. Each rank backpropagates its share of
+the global mean loss; the gradients of replicated parameters are then summed
+over the world and W's over the data group, in one all-reduce each, before
+the same SGD chain. ``state`` gathers W and its momentum whole (a
+collective: every rank reads it), so a checkpoint restores on any mesh.
 """
 
 from __future__ import annotations
@@ -46,10 +59,11 @@ import torch
 from torch import nn
 
 from crfr_torch.configs import Config
-from crfr_torch.device import refuse_mesh, resolve_device
-from crfr_torch.losses.arcface import MarginHead, streaming_margin_ce
+from crfr_torch.device import mesh_world, resolve_device
+from crfr_torch.losses.arcface import MarginHead, sharded_margin_ce, streaming_margin_ce
 from crfr_torch.losses.distill import residual_kd_loss
-from crfr_torch.models.irse import build_backbone
+from crfr_torch.models.irse import build_backbone, set_global_batch
+from crfr_torch.parallel import mesh as pmesh
 from crfr_torch.ops.fused_preprocess import fused_degrade_normalize
 from crfr_torch.ops.normalize import normalize
 from crfr_torch.utils.logging import MetricsWriter
@@ -114,6 +128,7 @@ class SGDTx:
         self.params = [p for _, p in named]
         self.clip = cfg.train.grad_clip_norm
         self.schedule = schedule
+        self.sharded: tuple[nn.Parameter, object] | None = None   # (W, model group)
 
     def step(self, count: int) -> torch.Tensor:
         """Update from the gradients in ``.grad`` at schedule step ``count``;
@@ -121,8 +136,14 @@ class SGDTx:
         grads = [p.grad for p in self.params if p.grad is not None]
         # float64 sums: torch's float32 norm on the CPU is off by ~4e-5 at
         # 2M elements, where XLA's reduction is not
-        norms = torch._foreach_norm(grads, 2, dtype=torch.float64)
-        gnorm = torch.linalg.vector_norm(torch.stack(norms)).float()
+        norms = torch.stack(torch._foreach_norm(grads, 2, dtype=torch.float64))
+        if self.sharded is not None:        # a class shard's square sums over its group
+            w, group = self.sharded
+            i = next(j for j, g in enumerate(grads) if g is w.grad)
+            sq = norms[i:i + 1] ** 2
+            torch.distributed.all_reduce(sq, group=group)
+            norms = torch.cat([norms[:i], sq.sqrt(), norms[i + 1:]])
+        gnorm = torch.linalg.vector_norm(norms).float()
         if self.clip:
             coef = torch.where(gnorm < self.clip, torch.ones_like(gnorm), self.clip / gnorm)
             torch._foreach_mul_(grads, coef)
@@ -138,7 +159,9 @@ def make_sgd_tx(cfg: Config, model: nn.Module, schedule: Callable[[int], float])
 
 
 class FaceTrainModel(nn.Module):
-    """Backbone + margin head, float32 parameters, drawn from ``generator``."""
+    """Backbone + margin head, float32 parameters, drawn from ``generator``.
+    The classes are padded to a multiple of ``mesh.model`` (``crfr``'s
+    rule), the padding masked by the head's ``num_valid``."""
 
     def __init__(self, cfg: Config, generator: torch.Generator):
         super().__init__()
@@ -146,9 +169,34 @@ class FaceTrainModel(nn.Module):
         self.backbone = build_backbone(mc.backbone, embedding_dim=mc.embedding_dim,
                                        dropout=mc.dropout, input_size=mc.input_size,
                                        generator=generator, remat=getattr(mc, "remat", False))
-        self.head = MarginHead(mc.embedding_dim, cfg.data.num_classes, margin_type=lc.head,
+        c = cfg.data.num_classes
+        c_pad = pmesh.pad_to_multiple(c, cfg.mesh.model)
+        self.head = MarginHead(mc.embedding_dim, c_pad, margin_type=lc.head,
                                s=lc.scale, m=lc.margin, easy_margin=lc.easy_margin,
-                               generator=generator)
+                               num_valid=c if c_pad != c else None, generator=generator)
+
+
+def _fit_classes(w: torch.Tensor, c: int) -> torch.Tensor:
+    """A (D, C') head weight or its momentum cut or zero-padded to C columns:
+    the padding classes of another mesh's checkpoint are never read."""
+    if w.shape[1] >= c:
+        return w[:, :c]
+    return torch.cat([w, w.new_zeros((w.shape[0], c - w.shape[1]))], dim=1)
+
+
+def sum_grads(params, world: int, group=None) -> None:
+    """Sum the ``.grad`` of ``params`` (replicated on every rank) over
+    ``group`` (the world when None): one all-reduce of their flattened
+    concatenation. A no-op on one rank."""
+    if world <= 1:
+        return
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    flat = torch._utils._flatten_dense_tensors(grads)
+    torch.distributed.all_reduce(flat, group=group)
+    for g, v in zip(grads, torch._utils._unflatten_dense_tensors(flat, grads)):
+        g.copy_(v)
 
 
 def _step_seed(seed: int, step: int) -> int:
@@ -172,33 +220,45 @@ class Trainer:
 
     def __init__(self, cfg: Config, steps_per_epoch: int = 1000,
                  metrics: MetricsWriter | None = None, device=None, mesh=None):
-        refuse_mesh(mesh, "Trainer")
-        if cfg.mesh.data * cfg.mesh.model != 1:
-            raise NotImplementedError(
-                f"mesh {cfg.mesh.data}x{cfg.mesh.model}: training over more than one device "
-                "(data parallel, the class-sharded head) is not ported yet; set "
-                "mesh.data=1 mesh.model=1")
         self.cfg = cfg
         self.device = resolve_device("cuda" if device is None else device)
+        if mesh is None and (cfg.mesh.data * cfg.mesh.model > 1 or pmesh.world_size() > 1):
+            mesh = pmesh.make_mesh(cfg.mesh, "cuda" if self.device.type == "cuda" else "cpu")
+        self.world = mesh_world(mesh)
+        self.mesh = mesh if self.world > 1 else None
+        if self.mesh is not None and tuple(self.mesh.shape) != (cfg.mesh.data, cfg.mesh.model):
+            raise ValueError(f"mesh {tuple(self.mesh.shape)} is not the config's "
+                             f"{cfg.mesh.data}x{cfg.mesh.model}")
         self.metrics = metrics or MetricsWriter(stdout=False)
         self.steps_per_epoch = steps_per_epoch
         self.model = self._build_model(cfg)
         self.model.to(self.device).train()
+        self._shard_model()
         self._step_seed_base = cfg.train.seed
         self._teacher_fn: Callable | None = None
         self.schedule = lr_schedule(cfg, steps_per_epoch)
         self.tx = make_sgd_tx(cfg, self.model, self.schedule)
+        if self._w_shard.parts > 1:
+            self.tx.sharded = (self.model.head.weight, self.mesh.get_group("model"))
         self.compute_dtype = (torch.bfloat16 if cfg.model.compute_dtype == "bfloat16"
                               else torch.float32)
 
         impl = cfg.loss.ce_impl
         if impl == "auto":
-            impl = ("streaming" if cfg.data.num_classes > cfg.loss.ce_streaming_threshold
-                    else "dense")
+            if cfg.mesh.model > 1:
+                impl = "sharded"
+            elif cfg.data.num_classes > cfg.loss.ce_streaming_threshold:
+                impl = "streaming"
+            else:
+                impl = "dense"
         if impl == "sharded":
-            raise NotImplementedError("ce_impl='sharded' needs a mesh of more than one "
-                                      "device, which is not ported yet")
-        if impl not in ("dense", "streaming"):
+            if cfg.mesh.model <= 1:
+                raise ValueError("ce_impl='sharded' needs mesh.model > 1")
+            lc = cfg.loss
+            self._sharded_ce = sharded_margin_ce(self.mesh, margin_type=lc.head, s=lc.scale,
+                                                 m=lc.margin, easy_margin=lc.easy_margin,
+                                                 num_valid=self.model.head.num_valid)
+        elif impl not in ("dense", "streaming"):
             raise ValueError(f"unknown ce_impl {cfg.loss.ce_impl!r}")
         self._ce_impl = impl
 
@@ -208,6 +268,36 @@ class Trainer:
         self.host_step = 0
 
     # ------------------------------------------------------------------
+    def _shard_model(self) -> None:
+        """On a mesh: keep this rank's class shard of W, make the replicated
+        tensors rank 0's, and train BN and dropout on the global batch."""
+        self._rank, self._w_shard, self._data_group = 0, pmesh.Sharding(dim=1), None
+        if self.mesh is None:
+            return
+        dist = torch.distributed
+        self._rank = dist.get_rank()
+        self._w_shard = pmesh.class_sharding(self.mesh)
+        head = self.model.head
+        head.weight = nn.Parameter(self._w_shard.local(head.weight.detach()).clone())
+        with torch.no_grad():
+            for t in (*self.model.parameters(), *self.model.buffers()):
+                if t is not head.weight:
+                    dist.broadcast(t, 0)
+        if self.cfg.mesh.data > 1:
+            self._data_group = self.mesh.get_group("data")
+        set_global_batch(self.model, self._rank, self.world)
+
+    def _sync_grads(self) -> None:
+        """Sum the gradients of the replicated parameters over the world (one
+        all-reduce of their flattened concatenation) and W's over the data
+        group."""
+        if self.mesh is None:
+            return
+        w = self.model.head.weight
+        sum_grads([p for p in self.tx.params if p is not w], self.world)
+        if w.grad is not None and self._data_group is not None:
+            torch.distributed.all_reduce(w.grad, group=self._data_group)
+
     def sync_host_step(self) -> int:
         """The step count. It lives on the host, so this reads nothing from
         the device; kept for callers written against ``crfr``."""
@@ -223,18 +313,55 @@ class Trainer:
         ``loss.distill_weight``·‖emb − t‖² while that weight is above 0."""
         self._teacher_fn = teacher_apply
 
+    def _w_index(self) -> int:
+        """W's index in the optimizer's state_dict."""
+        ps = [p for g in self.tx.opt.param_groups for p in g["params"]]
+        return next(i for i, p in enumerate(ps) if p is self.model.head.weight)
+
+    def _gather_w(self, w: torch.Tensor) -> torch.Tensor:
+        """W (or its momentum) whole from the class shards: an all-gather
+        over the model group."""
+        if self.mesh is None or self._w_shard.parts == 1:
+            return w
+        group = self.mesh.get_group("model")
+        parts = [torch.empty_like(w) for _ in range(self._w_shard.parts)]
+        torch.distributed.all_gather(parts, w.contiguous(), group=group)
+        return torch.cat(parts, dim=1)
+
     @property
     def state(self) -> dict:
-        return {"model": self.model.state_dict(), "opt": self.tx.opt.state_dict(),
-                "step": self.host_step, "seed": self.cfg.train.seed}
+        """Parameters and BN statistics, the optimizer's state, the step and
+        the seed, with W and its momentum whole (on a mesh every rank must
+        read it: the class shards are gathered)."""
+        model = self.model.state_dict()
+        opt = self.tx.opt.state_dict()
+        if self.mesh is not None:
+            model["head.weight"] = self._gather_w(model["head.weight"])
+            i = self._w_index()
+            if i in opt["state"]:
+                opt["state"][i] = dict(opt["state"][i], momentum_buffer=self._gather_w(
+                    opt["state"][i]["momentum_buffer"]))
+        return {"model": model, "opt": opt, "step": self.host_step,
+                "seed": self.cfg.train.seed}
 
     @state.setter
     def state(self, st: dict) -> None:
+        """Load a state of any mesh: W and its momentum are cut to this
+        run's padded class count, and on a mesh to this rank's shard."""
         if st["seed"] != self.cfg.train.seed:
             raise ValueError(f"the state was trained with seed {st['seed']}, this trainer "
                              f"has {self.cfg.train.seed}")
-        self.model.load_state_dict(st["model"])
-        self.tx.opt.load_state_dict(st["opt"])
+        c = self.model.head.weight.shape[1] * self._w_shard.parts
+        model = dict(st["model"])
+        model["head.weight"] = self._w_shard.local(_fit_classes(model["head.weight"], c))
+        opt = st["opt"]
+        i = self._w_index()
+        if i in opt["state"] and "momentum_buffer" in opt["state"][i]:
+            mom = self._w_shard.local(_fit_classes(opt["state"][i]["momentum_buffer"], c))
+            opt = dict(opt, state=dict(opt["state"]))
+            opt["state"][i] = dict(opt["state"][i], momentum_buffer=mom)
+        self.model.load_state_dict(model)
+        self.tx.opt.load_state_dict(opt)
         self.host_step = int(st["step"])
 
     def _generator(self, step: int) -> torch.Generator:
@@ -253,12 +380,13 @@ class Trainer:
                 host = np.asarray(lows)         # checked here: the kernel marks them NaN
                 if ((host < lo) | (host > hi)).any():
                     raise ValueError(f"lows outside {lo}..{hi}: {host.min()}..{host.max()}")
-            low = _as_tensor(lows, self.device).to(torch.int32)
+            low = _as_tensor(pmesh.local_rows(self.mesh, lows), self.device).to(torch.int32)
         elif lo == hi:
             low = lo                                      # a fixed degradation
-        elif self.cfg.data.per_sample_degrade:
-            low = torch.randint(lo, hi + 1, (b,), generator=gen, device=self.device,
-                                dtype=torch.int32)
+        elif self.cfg.data.per_sample_degrade:            # drawn for the global batch
+            low = torch.randint(lo, hi + 1, (b * self.world,), generator=gen,
+                                device=self.device, dtype=torch.int32)
+            low = pmesh.local_rows(self.mesh, low)
         else:                                             # one low for the batch
             low = torch.randint(lo, hi + 1, (1,), generator=gen, device=self.device,
                                 dtype=torch.int32).expand(b).contiguous()
@@ -268,6 +396,13 @@ class Trainer:
                                        self.compute_dtype, lows=(lo, hi))
 
     def _loss(self, emb: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """The CE of this rank's rows: the mean over them, or on a mesh this
+        rank's share of the global mean."""
+        if self._ce_impl == "sharded":
+            return self._sharded_ce(emb, labels, self.model.head.weight)
+        return self._local_ce(emb, labels) / self.world
+
+    def _local_ce(self, emb: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         head, lc = self.model.head, self.cfg.loss
         if self._ce_impl == "streaming":
             return streaming_margin_ce(emb, head.weight, labels, margin_type=lc.head,
@@ -290,16 +425,25 @@ class Trainer:
             return {}
         return {"kd": residual_kd_loss(emb, 0.0, t, weight=self.cfg.loss.distill_weight)}
 
-    def train_step(self, images, labels, lows=None) -> dict[str, torch.Tensor]:
+    def train_step(self, images, labels, lows=None, local: bool = False
+                   ) -> dict[str, torch.Tensor]:
         """One step. ``images`` (B, S, S, 3) uint8/f32 raw pixels, ``labels``
         (B,), numpy or tensors; ``lows`` (B,) each image's low in place of
         the step's own draw, each in [degrade_min, degrade_max] (checked
         when they come from the host; lows already on the card are not
         read back). Returns device scalars ``loss`` and
         ``grad_norm`` (of the raw gradients), and with extra terms the
-        ``ce`` and each term by name."""
+        ``ce`` and each term by name.
+
+        On a mesh the batch is global and each rank keeps its rows, or with
+        ``local`` it is this rank's slab of a global batch of world·b rows;
+        ``lows`` are always the global batch's. The metrics are the global
+        batch's, the same on every rank."""
         step = self.host_step
         gen = self._generator(step)
+        if not local:
+            images = pmesh.local_rows(self.mesh, images)
+            labels = pmesh.local_rows(self.mesh, labels)
         raw = _as_tensor(images, self.device)
         t = None                        # the teacher first: its transients go before the graph
         if self._teacher_fn is not None and self.cfg.loss.distill_weight > 0:
@@ -312,16 +456,21 @@ class Trainer:
             emb = self.model.backbone(x, generator=gen)
         ce = self._loss(emb, y)
         terms = self._extra_terms(raw, x, emb, t)
+        if self.world > 1:              # each rank's share of the global mean
+            terms = {k: v / self.world for k, v in terms.items()}
         loss = ce
         for term in terms.values():
             loss = loss + term
         self.tx.opt.zero_grad(set_to_none=True)
         loss.backward()
+        self._sync_grads()
         gnorm = self.tx.step(step)
         self.host_step += 1
         m = {"loss": loss.detach(), "grad_norm": gnorm}
         if terms:
             m.update(ce=ce.detach(), **{k: v.detach() for k, v in terms.items()})
+        # the shares → the global batch's values
+        m.update(pmesh.sum_over_ranks({k: v for k, v in m.items() if k != "grad_norm"}))
         return m
 
     def fit(self, batches: Iterable, max_steps: int | None = None,
@@ -335,11 +484,12 @@ class Trainer:
         t0 = time.time()
         n_img = 0
         last: dict[str, float] = {}
-        for i, (images, labels) in enumerate(device_feed(batches, self.device)):
+        feed = device_feed(batches, self.device, mesh=self.mesh)   # this rank's rows
+        for i, (images, labels) in enumerate(feed):
             if max_steps is not None and i >= max_steps:
                 break
-            m = self.train_step(images, labels)
-            n_img += len(labels)
+            m = self.train_step(images, labels, local=True)
+            n_img += len(labels) * self.world
             step = self.host_step
             if step % self.cfg.train.log_every == 0 or (max_steps and i == max_steps - 1):
                 scalars = {k: float(v) for k, v in m.items()}
@@ -373,9 +523,12 @@ class Trainer:
 
     def embed_fn(self) -> Callable:
         """Raw (B, S, S, 3) pixels → (B, D) f32, reading the trainer's live
-        weights at every call."""
+        weights at every call. On a mesh a batch that divides the world is
+        split over the ranks and gathered back (every rank must call)."""
         def run(images) -> torch.Tensor:
+            images, split = pmesh.maybe_shard_batch(self.mesh, images)
             x = normalize(_as_tensor(images, self.device))
-            return self.backbone_apply(self.embed_state(), x)
+            emb = self.backbone_apply(self.embed_state(), x)
+            return pmesh.all_gather_rows(emb, None) if split else emb
 
         return run

@@ -34,7 +34,14 @@ the keys ``g``, ``d``, ``g_opt``, ``d_opt``, ``step``, ``g_ema`` and
 The reference's pre-v2 Orbax checkpoints cannot be read here, so there is
 no legacy restore: a state without ``meta`` raises.
 
-Not ported: a mesh of more than one device (it raises).
+On a mesh (``cfg.mesh`` data·model > 1, or a ``mesh``; ``parallel.mesh``,
+one process per device) G and D train data-parallel, as ``crfr``'s batch is
+sharded over its whole mesh: each rank takes its rows of the batch (kernel
+2's ↓ on them), G's and D's BN normalise by the global batch
+(``models.irse.set_global_batch``), each loss is this rank's share of the
+global mean, and the gradients are summed over the world before Adam, so
+Adam, R1 and the EMA see the global gradient. G and D start from rank 0's
+weights; the metrics are the global batch's.
 """
 
 from __future__ import annotations
@@ -47,14 +54,17 @@ import torch
 from torch import nn
 
 from crfr_torch.configs import Config
-from crfr_torch.device import refuse_mesh, resolve_device
+from crfr_torch.device import mesh_world, resolve_device
 from crfr_torch.eval.image_quality import psnr, ssim
 from crfr_torch.losses import gan as gl
+from crfr_torch.models.irse import set_global_batch
 from crfr_torch.models.sr import Hallucinator, build_discriminator, build_hallucinator
 from crfr_torch.ops.fused_preprocess import fused_resize_normalize
 from crfr_torch.ops.heatmaps import landmark_heatmaps, prior_targets
 from crfr_torch.ops.normalize import denormalize, normalize
+from crfr_torch.parallel import mesh as pmesh
 from crfr_torch.train.distill_loop import frozen_copy
+from crfr_torch.train.loop import sum_grads
 from crfr_torch.utils.logging import MetricsWriter
 
 
@@ -78,12 +88,14 @@ def adam_schedule(peak: float, schedule: str = "constant", total_steps: int = 10
 
 class _Adam:
     """``torch.optim.Adam`` (betas 0.9, 0.99) at the schedule's value for
-    its own count of updates."""
+    its own count of updates; with ``world`` > 1 ranks the gradients are
+    summed over them first."""
 
-    def __init__(self, params, schedule: Callable[[int], float]):
+    def __init__(self, params, schedule: Callable[[int], float], world: int = 1):
         self.params = list(params)
         self.opt = torch.optim.Adam(self.params, lr=0.0, betas=(0.9, 0.99), eps=1e-8)
         self.schedule = schedule
+        self.world = world
 
     def count(self) -> int:
         st = self.opt.state.get(self.params[0])
@@ -95,6 +107,7 @@ class _Adam:
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         for p, g in zip(self.params, grads):
             p.grad = g
+        sum_grads(self.params, self.world)
         self.apply()
 
     def apply(self) -> None:
@@ -151,16 +164,15 @@ class SRTrainer:
         ``n_d_steps`` D updates per G update on the same batch; ``r1_gamma``
         the R1 penalty's weight (0: off); ``ema_decay`` 0 turns the EMA off.
         ``device`` defaults to CUDA and raises without it."""
-        refuse_mesh(mesh, "SRTrainer")
-        if cfg.mesh.data * cfg.mesh.model != 1:
-            raise NotImplementedError(
-                f"mesh {cfg.mesh.data}x{cfg.mesh.model}: SR training over more than one "
-                "device is not ported yet; set mesh.data=1 mesh.model=1")
         size = cfg.data.image_size
         if size % scale:
             raise ValueError(f"image size {size} is not a multiple of scale {scale}")
         self.cfg = cfg
         self.device = resolve_device("cuda" if device is None else device)
+        if mesh is None and (cfg.mesh.data * cfg.mesh.model > 1 or pmesh.world_size() > 1):
+            mesh = pmesh.make_mesh(cfg.mesh, "cuda" if self.device.type == "cuda" else "cpu")
+        self.world = mesh_world(mesh)
+        self.mesh = mesh if self.world > 1 else None
         self.metrics = metrics or MetricsWriter(stdout=False)
         self.scale, self.n_priors, self.bicubic_skip = scale, n_priors, bicubic_skip
         self.lr_size = size // scale
@@ -169,12 +181,18 @@ class SRTrainer:
         self.d = build_discriminator(torch.Generator().manual_seed(1))
         self.g.to(self.device).train()
         self.d.to(self.device).train()
+        if self.mesh is not None:
+            with torch.no_grad():
+                for net in (self.g, self.d):
+                    for t in (*net.parameters(), *net.buffers()):
+                        torch.distributed.broadcast(t, 0)
+                    set_global_batch(net, torch.distributed.get_rank(), self.world)
         self.g_ema = frozen_copy(self.g) if ema_decay > 0 else None
         self.ema_decay = ema_decay
         self.g_opt = _Adam(self.g.parameters(),
-                           adam_schedule(lr_g, schedule, total_steps, warmup_steps))
+                           adam_schedule(lr_g, schedule, total_steps, warmup_steps), self.world)
         self.d_opt = _Adam(self.d.parameters(),
-                           adam_schedule(lr_d, schedule, total_steps, warmup_steps))
+                           adam_schedule(lr_d, schedule, total_steps, warmup_steps), self.world)
         self.n_d_steps = max(int(n_d_steps), 1)
         self.r1_gamma = float(r1_gamma)
         self.teacher_fn = teacher_fn
@@ -247,12 +265,17 @@ class SRTrainer:
             if not v.is_floating_point():
                 v.copy_(live[k])
 
-    def train_step(self, hr_images, landmarks=None) -> dict[str, torch.Tensor]:
+    def train_step(self, hr_images, landmarks=None, local: bool = False
+                   ) -> dict[str, torch.Tensor]:
         """One G step and ``n_d_steps`` D steps on raw (B, S, S, 3) uint8/f32
         pixels, numpy or tensors. ``landmarks`` (B, 5, 2) pixel coordinates
         switch the prior term to targets built from them on the device,
         whatever ``prior_target_fn`` is. Returns device scalars ``g_loss``
-        and ``d_loss``."""
+        and ``d_loss``. On a mesh the batch is global and each rank keeps
+        its rows, or with ``local`` it is this rank's slab."""
+        if not local:
+            hr_images = pmesh.local_rows(self.mesh, hr_images)
+            landmarks = pmesh.local_rows(self.mesh, landmarks)
         x = _as_pixels(hr_images, self.device)
         hr = normalize(x)
         lr = self._down(x)
@@ -261,19 +284,20 @@ class SRTrainer:
         else:
             prior_t = self.prior_target_fn(hr) if self.prior_target_fn is not None else None
         g_loss, sr = self._g_loss(hr, lr, prior_t)
+        g_loss = g_loss / self.world              # this rank's share of the global mean
         self.g_opt.step(g_loss)
         sr = sr.detach()                    # G's output before its update
         if self.g_ema is not None:
             self._ema_update()
         for _ in range(self.n_d_steps):
-            d_loss = self._d_loss(hr, sr)
+            d_loss = self._d_loss(hr, sr) / self.world
             self.d_opt.step(d_loss)
         self.step += 1
-        g_loss, d_loss = g_loss.detach(), d_loss.detach()
+        m = pmesh.sum_over_ranks({"g_loss": g_loss.detach(), "d_loss": d_loss.detach()})
         if self.step % self.cfg.train.log_every == 0:
-            self.metrics.write(self.step, g_loss=float(g_loss), d_loss=float(d_loss),
-                               **self.psnr_ssim(x))
-        return {"g_loss": g_loss, "d_loss": d_loss}
+            self.metrics.write(self.step, g_loss=float(m["g_loss"]), d_loss=float(m["d_loss"]),
+                               **self.psnr_ssim(x, local=True))
+        return m
 
     # ------------------------------------------------------------------
     def state_dict(self) -> dict:
@@ -331,14 +355,20 @@ class SRTrainer:
         return sr_apply_from_state(self._serve_module(ema), trainable=trainable)
 
     @torch.no_grad()
-    def psnr_ssim(self, hr_images, ema: bool = True) -> dict[str, float]:
+    def psnr_ssim(self, hr_images, ema: bool = True, local: bool = False) -> dict[str, float]:
         """Degrade (one kernel launch) → hallucinate → PSNR and SSIM against
-        the HR batch, means over the batch, with the live weights."""
+        the HR batch, means over the batch, with the live weights (on a
+        mesh over the global batch, of which each rank takes its rows, or
+        with ``local`` holds them)."""
+        if not local:
+            hr_images = pmesh.local_rows(self.mesh, hr_images)
         x = _as_pixels(hr_images, self.device)
         sr = _run_eval(self._serve_module(ema), self._down(x))[0]
         a = denormalize(sr).clamp(0, 255)
         b = denormalize(normalize(x)).clamp(0, 255)
-        return {"psnr": float(psnr(a, b).mean()), "ssim": float(ssim(a, b).mean())}
+        m = pmesh.sum_over_ranks({"psnr": psnr(a, b).mean() / self.world,
+                                  "ssim": ssim(a, b).mean() / self.world})
+        return {k: float(v) for k, v in m.items()}
 
     def sr_fn(self, ema: bool = True) -> Callable:
         """Raw LR pixels (B, s, s, 3) → SR pixels in [0, 255], reading the

@@ -116,9 +116,28 @@ def test_margin_head_init_and_loss():
     assert abs(got - want) <= 1e-5 * want
 
 
-def test_sharded_ce_is_not_ported():
-    with pytest.raises(NotImplementedError, match="more than one device"):
-        port.sharded_margin_ce(None)
+def test_sharded_ce_is_not_ported(tmp_path):
+    """The class-sharded CE, over a (1, 2) mesh of two gloo ranks, equals
+    the port's dense margin CE and its gradients (each rank holds half of
+    W's 10 columns; the padding class of 9 valid ones is masked)."""
+    from tests._torch_rank_worker import run_ranks
+
+    rng = np.random.default_rng(5)
+    kw = dict(margin_type="arcface", s=16.0, m=0.3, easy_margin=False)
+    case = {"shape": (1, 2), "emb": rng.normal(size=(6, 16)).astype(np.float32),
+            "labels": rng.integers(0, 9, 6).astype(np.int64),
+            "w": rng.normal(size=(16, 10)).astype(np.float32), "num_valid": 9, "kw": kw}
+    outs = run_ranks("ce", 2, {"cases": [case]}, tmp_path, timeout=90)
+    emb = torch.from_numpy(case["emb"]).requires_grad_(True)
+    w = torch.from_numpy(case["w"]).requires_grad_(True)
+    labels = torch.from_numpy(case["labels"])
+    loss = port.softmax_ce(port.margin_logits(emb, w, labels, num_valid=9, **kw), labels)
+    loss.backward()
+    for out in outs:
+        got = out["cases"][0]
+        assert abs(float(got["loss"]) - loss.item()) <= 1e-5 * loss.item()
+        np.testing.assert_allclose(got["g_emb"].numpy(), emb.grad.numpy(), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got["g_w"].numpy(), w.grad.numpy(), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("schedule,warmup,drops", [

@@ -6,6 +6,8 @@ cases of tests/test_bank_lifecycle.py on ``ServingBank(device="cpu")``."""
 
 import threading
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -112,7 +114,13 @@ def test_topk_matches_bank_small_bank_and_approx(rng):
         gs, gl = port.topk_matches_bank(p, bank, k=3, block=16, **kw)
         np.testing.assert_array_equal(gl, np.asarray(wl))
         np.testing.assert_allclose(gs, np.asarray(ws), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # a one-device mesh scans on the one device; a mesh of more devices than
+    # this process group's ranks, or one whose size cannot be read, raises
+    one = port.topk_matches_bank(p, bank, k=3, block=16, mesh=SimpleNamespace(size=lambda: 1))
+    np.testing.assert_array_equal(one[1], np.asarray(wl))
+    with pytest.raises(ValueError, match="process group"):
+        port.topk_matches_bank(p, bank, k=3, mesh=SimpleNamespace(size=lambda: 2))
+    with pytest.raises(TypeError, match="size of mesh"):
         port.topk_matches_bank(p, bank, k=3, mesh=object())
 
 

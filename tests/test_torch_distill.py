@@ -380,11 +380,17 @@ def test_refusals():
     with pytest.raises(ValueError, match="exclusive"):
         DistillTrainer(cfg, teacher, device="cpu", sr_fn=lambda x: x,
                        sr_module=torch.nn.Identity())
-    with pytest.raises(NotImplementedError, match="more than one device"):
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
         DistillTrainer(cfg.override(**{"mesh.data": 2}), teacher, device="cpu")
     st = DistillTrainer(cfg, teacher, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        st.student_embed_fn(local_snapshot=True)
+    # the local snapshot embeds as the live weights do, and is taken anew
+    # after each trained step
+    x = batches(1)[0][0][:4]
+    snap = st.student_embed_fn(with_residual=True, local_snapshot=True)
+    live = st.student_embed_fn(with_residual=True)
+    np.testing.assert_array_equal(snap(x).numpy(), live(x).numpy())
+    st.train_step(*batches(1)[0])
+    np.testing.assert_array_equal(snap(x).numpy(), live(x).numpy())
     with pytest.raises(ValueError, match="no trainable G"):
         st.sr_apply()
     g = DistillTrainer(cfg, teacher, device="cpu", sr_fn=lambda x: x, sr_scale=4)

@@ -105,14 +105,16 @@ def test_approx_flag_is_accepted_and_exact(rng, caplog):
             np.testing.assert_array_equal(got[1], exact[1])
             np.testing.assert_array_equal(got[0], exact[0])
     assert sum("exact top-k" in r.getMessage() for r in caplog.records) == 1
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="size of mesh"):
         port.topk_matches(p, g, glabels, k=5, mesh=object(), device=CPU)
 
 
 @pytest.mark.parametrize("gallery", ["float", "int8"])
 def test_one_device_mesh_scans_on_one_device(rng, gallery):
     """A mesh of one device takes the single-device scan, as in crfr; a
-    mesh of more devices, or one whose size cannot be read, raises."""
+    mesh of more devices than this process group's ranks (one: there is no
+    group), or one whose size cannot be read, raises. The row-sharded scan
+    itself is held against crfr's in tests/test_torch_parallel.py."""
     import jax
     from types import SimpleNamespace
 
@@ -129,9 +131,11 @@ def test_one_device_mesh_scans_on_one_device(rng, gallery):
         np.testing.assert_array_equal(got[1], np.asarray(want[1]))
         np.testing.assert_array_equal(got[1], order)
         np.testing.assert_allclose(got[0], np.asarray(want[0]), rtol=0, atol=1e-5)
-    for mesh in (two, SimpleNamespace(size=lambda: 2), object()):
-        with pytest.raises(NotImplementedError, match="more than one device"):
+    for mesh in (two, SimpleNamespace(size=lambda: 2)):
+        with pytest.raises(ValueError, match="needs a process group of 2 ranks, this one has 1"):
             port.topk_matches(p, gal, glabels, k=5, mesh=mesh, device=CPU)
+    with pytest.raises(TypeError, match="size of mesh"):
+        port.topk_matches(p, gal, glabels, k=5, mesh=object(), device=CPU)
 
 
 def test_closed_set_matches(rng):

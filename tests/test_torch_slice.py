@@ -72,8 +72,10 @@ def test_extract_refuses_unported_options(twins):
     _, tm = twins
     with pytest.raises(ValueError, match="sr_apply needs degrade_to"):
         make_extract_fn(tm, sr_apply=lambda v: v, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="size of mesh"):          # split: test_torch_parallel
         make_extract_fn(tm, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="process group"):
+        make_extract_fn(tm, mesh=types.SimpleNamespace(size=lambda: 2), device="cpu")
     x = _faces(2, B)                       # a one-device mesh: the single-device path
     np.testing.assert_array_equal(
         make_extract_fn(tm, degrade_to=LOW, image_size=SIZE, device="cpu",

@@ -188,6 +188,10 @@ def test_cli_wants_cuda_unless_told(tmp_path, monkeypatch):
             f"train.checkpoint_dir={tmp_path}", "--max-steps", "1"]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(argv)
+    # WORLD_SIZE alone describes no launch: the one process still wants CUDA;
+    # a mesh larger than the processes raises
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="more than one process"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         main(argv)
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
+        main([*argv, "--device", "cpu", "mesh.data=2"])

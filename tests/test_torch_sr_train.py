@@ -237,9 +237,11 @@ def test_logging_writes_psnr_ssim(tmp_path):
 
 def test_refusals():
     cfg = port_cfg()
-    with pytest.raises(NotImplementedError, match="more than one device"):
+    # a mesh larger than the process group raises (the data-parallel step is
+    # held against one process in tests/test_torch_parallel.py)
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
         SRTrainer(port_cfg(**{"mesh.data": 2}), device="cpu", scale=4)
-    with pytest.raises(NotImplementedError, match="more than one device"):
+    with pytest.raises(TypeError, match="size of mesh"):
         SRTrainer(cfg, device="cpu", scale=4, mesh=object())
     with pytest.raises(ValueError, match="not a multiple of scale 5"):
         SRTrainer(cfg, device="cpu", scale=5)

@@ -162,10 +162,14 @@ def test_remat_step_matches_plain():
 
 
 def test_trainer_refuses_what_is_not_ported():
+    """A mesh larger than the process group (one process: no group) raises
+    as crfr's make_mesh does, and the class-sharded CE needs mesh.model > 1
+    (as crfr asserts); training on a mesh is held against crfr in
+    tests/test_torch_parallel_train.py."""
     cfg = PortConfig.from_dict(tiny_cfg().to_dict())
-    with pytest.raises(NotImplementedError, match="more than one device"):
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
         Trainer(cfg.override(**{"mesh.data": 2}), device="cpu")
-    with pytest.raises(NotImplementedError, match="more than one device"):
+    with pytest.raises(ValueError, match="needs mesh.model > 1"):
         Trainer(cfg.override(**{"loss.ce_impl": "sharded"}), device="cpu")
 
 

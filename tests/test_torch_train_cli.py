@@ -125,9 +125,13 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch):
         _train(tmp_path, 1, "train.bogus=1")
     with pytest.raises(SystemExit):
         _train(tmp_path, 1, "--bogus")
+    # WORLD_SIZE alone describes no launch (no address, no rank): one
+    # process trains; a mesh larger than the processes raises. Two processes
+    # are held in tests/test_torch_parallel_distill.py.
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="more than one process"):
-        _train(tmp_path, 1)
+    assert _train(tmp_path / "one", 1) == 0
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
+        _train(tmp_path / "two", 1, "mesh.data=2")
 
 
 def test_cli_wants_cuda_unless_told(tmp_path, monkeypatch):
