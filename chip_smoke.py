@@ -5,11 +5,20 @@ soak, the schedule soak, debug and profiling, the roofline, SR training, halluci
 extraction, the SR CLI, residual KD, the KD CLI, the int8 embed path, the
 int8 serving CLI, the headline experiment, detection, recognition from a
 photo, MobileFaceNet, the serving artifact, the artifact daemon in this
-process and from the CLI, the evaluation CLI, and two rank processes on
+process and from the CLI, the evaluation CLI, two rank processes on
 the card (the sharded gallery scan, data-parallel and class-sharded
-training, the two-process train CLI).
+training, the two-process train CLI), the ``bench`` subcommand and its
+CPU yardstick, and the MS1M-scale step and FIT tools.
 
     python3 chip_smoke.py
+
+The child processes of the correctness phases (the CLIs, the recycled
+chain, the schedule soak, the MS1M FIT, phase 24's CLI ranks) run in the
+background beside each other or beside in-process work that is not
+timed, so their start-ups overlap; each phase's own seconds are in its line (``wall_s`` and the
+like). The timed work runs alone on the card, but for ``ms1m_scale``,
+which runs while the FIT child renders its faces on the host, and phase
+24's ranks, whose launch runs beside the one-process float32 reference.
 
 Phases, each printing one JSON line (with ``elapsed_s``, the seconds
 since the script started):
@@ -88,7 +97,8 @@ since the script started):
 8. cli: ``python -m crfr_torch train --preset casia_arcface`` with 64
    classes, batch 64 and a checkpoint every 3 steps for ``--max-steps 6``,
    then ``--resume`` to 9 (it must resume at 6 and end with
-   ``{"final_step": 9}``); a trainer restored from step 6 equals the saved
+   ``{"final_step": 9}``), both children started before phase 8a and run
+   beside it and phase 8b; a trainer restored from step 6 equals the saved
    state bit for bit (parameters, BN statistics, momentum buffers, step);
 8a. train_eval: ``train --eval-bin`` in this process (phase 8's cut: 64
    classes, batch 64) from a ``.crfrpack`` of ``bench/soak.py``'s
@@ -103,7 +113,8 @@ since the script started):
 8b. recycle: ``python -m crfr_torch train --max-steps 9 --recycle-every-steps
    3`` in a child: recycles at (3, 1) and (6, 2), both resumes in its
    stderr, ``{"final_step": 9}``, steps 1..9 logged once each; two
-   straight 9-step runs in this process: the chain equal to the first bit
+   straight 9-step runs in this process while the child runs (and phase
+   8d's child beside both): the chain equal to the first bit
    for bit, or (cuDNN's backward not being deterministic) no further from
    it than the second is; both maxima printed;
 8c. soak: ``bench.soak.run_soak`` at IR-50, batch 256, 112², 120 steps on a
@@ -150,8 +161,8 @@ since the script started):
    path's (one launch of kernel 1) within 1e-4 relative, which holds the
    two kernels against each other; the batch timed; and
    ``build_serving_fn(sr_apply=...)`` equal to ``make_extract_fn``;
-11. sr_cli: ``python -m crfr_torch train-sr`` (64 synthetic identities) at
-   batch 16 with a checkpoint
+11. sr_cli (run beside phase 13, after phase 12): ``python -m crfr_torch
+   train-sr`` (64 synthetic identities) at batch 16 with a checkpoint
    every 2 steps for ``--max-steps 4``, then ``--resume`` to 6 (``"steps":
    6``); a trainer restored from step 4 equals the saved state bit for
    bit (G, D, both Adam states, the EMA, the step);
@@ -169,11 +180,12 @@ since the script started):
    card under ``strict_fp32()`` against the same step on CPU tensors
    (losses within 1e-4 relative, the student within rtol 1e-3 / atol
    1e-4, G's Adam sign flips within 2·lr and counted);
-13. distill_cli: ``python -m crfr_torch train`` for 2 steps as the teacher,
-   then ``train-distill`` (64 synthetic identities, batch 16) for 4 steps,
-   ``--resume`` to 6 and 6 straight, with cuDNN's deterministic
-   algorithms: the resumed state equals the straight one bit for bit; one
-   run with ``--sr-ckpt`` (G at init);
+13. distill_cli: ``train`` for 2 steps in this process as the teacher,
+   then ``python -m crfr_torch train-distill`` (64 synthetic identities,
+   batch 16) in children with cuDNN's deterministic algorithms, three at
+   once: 4 steps and ``--resume`` to 6, 6 straight, and one run with
+   ``--sr-ckpt`` (G at init): the resumed state equals the straight one
+   bit for bit;
 14. int8_embed: ``build_embed_pipeline("ir_50", int8=True)`` at B=256, 16
    px pil (weights from seed 0, quantized from float32, calibrated on two
    batches of 32 seeded noise images as crfr's bench does): exactly one
@@ -271,7 +283,9 @@ since the script started):
    ``--rank``, or ``python -m crfr_torch train``), started through the
    port's ``CRFR_*`` launch variables on gloo (NCCL refuses two ranks on
    one card; gloo stages CUDA tensors through the host, the kernels run on
-   the card), each with a time limit: (a) phase 5's bank row-sharded, each
+   the card), each with a time limit, (c) started before phase 23 and
+   run beside it, then (a) and (b) in one launch of the ranks, (b)'s
+   one-process reference computed meanwhile: (a) phase 5's bank row-sharded, each
    rank uploading and scanning its 2^19 rows (``bank_tilemax`` once a
    rank, counted in the rank), equal to phase 5's one-process fused scan
    (scores within 1e-6, labels outside ties, top-1 planted); (b) the
@@ -284,9 +298,27 @@ since the script started):
    kernel 1' launches a rank: one a step), then a split extract of 256
    faces (kernel 1 once a rank, cosine to the whole batch > 0.999); (c)
    ``train`` as two processes on a ``.crfrpack``: 4 steps + ``--resume`` to
-   6 equal to 6 straight (or within two straight runs' spread), metrics
+   6 equal to 6 straight (or within two straight runs' spread; the 6
+   straight run beside the 4-step one, four ranks at once), metrics
    from rank 0 alone, ``data_state_{0,1}.json``.
    ``python3 chip_smoke.py --only distributed`` runs phase 5 and this one.
+25. bench (run after phase 14): ``python -m crfr_torch bench`` and ``bench
+   --int8`` at B=256 (``--steps`` cut, in ``reduced``) as child processes,
+   alone on the card: ``crfr``'s three keys, ``per_batch_ms`` within 5% of
+   the embed and int8_embed phases' ms a batch; one in-process
+   ``run_throughput`` of each pipeline with the counters from 0: kernel 1
+   once a batch; the CPU yardstick (``measure_cpu_reference``, uncached) on
+   the host's cores beside the card's imgs/s where PIL imports (else
+   ``"run": false``, not a failure);
+26. ms1m (its line after phase 15's): ``python -m crfr_torch.bench.ms1m_fit``
+   at C=85,742 in a child beside ``ms1m_scale`` and phase 15 (40 steps at
+   batch 64: 2,560 renders; cuts in ``reduced``): exit 0, no
+   gap in the metrics stream, ``final_step`` 40, the device step measured
+   on this card; ``bench.ms1m_scale`` in this process at the
+   full shape (C=85,742, IR-50, B=256, streaming CE, control C=1,000,
+   steps cut): the loss finite and falling on its repeated batch, the
+   head's marginal ms and the peak memory, kernel 1' once a step.
+   ``python3 chip_smoke.py --only bench`` runs phases 3, 14, 25 and 26.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the exit code is
@@ -298,6 +330,8 @@ from __future__ import annotations
 import io
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -410,6 +444,78 @@ def _windows(step, b: int, steps: int = 10, repeats: int = 3) -> list[float]:
         torch.cuda.synchronize()
         out.append(steps * b / (time.perf_counter() - t0))
     return out
+
+
+_CHILDREN: list[subprocess.Popen] = []      # every child started, for stop_children
+
+
+def _kill(p: subprocess.Popen) -> None:
+    """``p`` and its own children (each child leads a process group)."""
+    try:
+        os.killpg(p.pid, signal.SIGKILL)
+    except (ProcessLookupError, PermissionError):
+        pass
+    p.wait()
+
+
+def _run_child(argv: list[str], env: dict, timeout: float = 600) -> subprocess.CompletedProcess:
+    """``subprocess.run`` of ``argv`` from the checkout's root, recorded so
+    that ``stop_children`` ends it if the script fails meanwhile."""
+    p = subprocess.Popen(argv, cwd=Path(__file__).resolve().parent, env=env,
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                         start_new_session=True)
+    _CHILDREN.append(p)
+    try:
+        out, err = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        _kill(p)
+        out, err = p.communicate()
+    return subprocess.CompletedProcess(argv, p.returncode, out, err)
+
+
+def stop_children() -> None:
+    for p in _CHILDREN:
+        if p.poll() is None:
+            _kill(p)
+
+
+class Background:
+    """``fn()`` on a thread while the script goes on; ``result()`` waits and
+    returns its value or raises its exception. The child processes of the
+    correctness phases run so, beside each other or beside in-process work
+    that is not timed: their start-ups and host work overlap."""
+
+    def __init__(self, fn):
+        self._value, self._error, self.wall_s = None, None, None
+        self._thread = threading.Thread(target=self._run, args=(fn,), daemon=True)
+        self._thread.start()
+
+    def _run(self, fn) -> None:
+        t0 = time.perf_counter()
+        try:
+            self._value = fn()
+        except Exception as e:                # re-raised by result()
+            self._error = e
+        self.wall_s = time.perf_counter() - t0
+
+    def result(self):
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        return self._value
+
+
+def children(*argvs: list[str], env: dict, timeout: float = 600) -> Background:
+    """``argvs`` as child processes one after another, in the background,
+    stopping after the first that fails; → their ``CompletedProcess``es."""
+    def run():
+        out = []
+        for argv in argvs:
+            out.append(_run_child(list(argv), env, timeout))
+            if out[-1].returncode != 0:
+                break
+        return out
+    return Background(run)
 
 
 def bound(in_bytes: int, out_bytes: int, ops: int,
@@ -1078,29 +1184,31 @@ def phase_train(fp) -> dict:
             "f32_step_grad_norm_rel_card_vs_cpu": rel_g, "f32_step_param_excess": worst}
 
 
-def phase_cli() -> dict:
-    """The train CLI for 6 steps, then resumed to 9, in child processes."""
+def start_cli() -> dict:
+    """The train CLI for 6 steps, then resumed to 9, in child processes one
+    after the other, in the background (beside the train_eval phase)."""
+    tmp = tempfile.mkdtemp()
+    ov = [*CLI_OV, "train.checkpoint_every_steps=3", f"train.checkpoint_dir={tmp}/ck"]
+    cmd = [sys.executable, "-m", "crfr_torch", "train", "--preset", "casia_arcface", *ov]
+    return {"tmp": tmp, "ov": ov, "runs": children([*cmd, "--max-steps", "6"],
+                                                   [*cmd, "--max-steps", "9", "--resume"],
+                                                   env=_child_env())}
+
+
+def phase_cli(started: dict) -> dict:
+    """``start_cli``'s runs: ``{"final_step": 6}``, then a resume at 6 that
+    ends at 9; a trainer restored from step 6 equals the saved state."""
     from crfr_torch.configs import get_config
     from crfr_torch.train.checkpoints import Checkpointer
     from crfr_torch.train.loop import Trainer
 
-    root = Path(__file__).resolve().parent
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        [str(root), *filter(None, [os.environ.get("PYTHONPATH")])])}
-    with tempfile.TemporaryDirectory() as tmp:
-        ov = ["data.num_classes=64", "train.batch_size=64", "train.checkpoint_every_steps=3",
-              f"train.checkpoint_dir={tmp}/ck"]
-        runs = []
-        t0 = time.perf_counter()
-        for extra in (["--max-steps", "6"], ["--max-steps", "9", "--resume"]):
-            r = subprocess.run([sys.executable, "-m", "crfr_torch", "train", "--preset",
-                                "casia_arcface", *ov, *extra], cwd=root, env=env,
-                               capture_output=True, text=True, timeout=600)
+    tmp, ov = started["tmp"], started["ov"]
+    try:
+        runs = started["runs"].result()
+        for r in runs:
             if r.returncode != 0:
                 raise AssertionError(f"cli: exit {r.returncode}\n{r.stdout[-2000:]}\n"
                                      f"{r.stderr[-4000:]}")
-            runs.append(r)
-        wall = time.perf_counter() - t0
         finals = [json.loads(r.stdout.strip().splitlines()[-1]) for r in runs]
         if finals != [{"final_step": 6}, {"final_step": 9}] or \
                 "resumed from step 6" not in runs[1].stderr:
@@ -1112,9 +1220,11 @@ def phase_cli() -> dict:
         if not _state_equal(tr.state, saved) or tr.host_step != 6:
             raise AssertionError("cli: a trainer restored from step 6 differs from the saved state")
         steps = ck.steps()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return {"phase": "cli", "final_steps": [f["final_step"] for f in finals],
             "resumed_from": 6, "checkpoints": steps, "restored_equals_saved": True,
-            "wall_s_two_runs": wall}
+            "wall_s_two_runs": started["runs"].wall_s}
 
 
 CLI_OV = ["data.num_classes=64", "train.batch_size=64"]     # phase_cli's cut of the preset
@@ -1200,24 +1310,25 @@ def _max_diff(a: dict, b: dict) -> float:
 def phase_recycle() -> dict:
     """``python -m crfr_torch train --max-steps 9 --recycle-every-steps 3`` in
     a child: recycles at (3, 1) and (6, 2), "resumed from step 3" and "... 6"
-    in its stderr, ``{"final_step": 9}``, steps 1..9 logged once each; then
-    two straight 9-step runs in this process. The chain's final state equals
-    the first's bit for bit, or is no further from it than the second
-    straight run is (cuDNN's backward may not be deterministic); both maxima
-    printed."""
+    in its stderr, ``{"final_step": 9}``, steps 1..9 logged once each; two
+    straight 9-step runs in this process while the child runs. The chain's
+    final state equals the first's bit for bit, or is no further from it
+    than the second straight run is (cuDNN's backward may not be
+    deterministic); both maxima printed."""
     from crfr_torch.train.checkpoints import Checkpointer
 
-    root = Path(__file__).resolve().parent
     with tempfile.TemporaryDirectory() as tmp:
         base = ["train", "--preset", "casia_arcface", *CLI_OV, "--max-steps", "9",
                 "train.checkpoint_every_steps=100", "train.log_every=1"]
         env = _child_env()
         env.pop("CRFR_RECYCLE_GEN", None)
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "crfr_torch", *base, "--recycle-every-steps",
-                            "3", f"train.checkpoint_dir={tmp}/chain"], cwd=root, env=env,
-                           capture_output=True, text=True, timeout=600)
-        chain_s = time.perf_counter() - t0
+        chain_run = children([sys.executable, "-m", "crfr_torch", *base, "--recycle-every-steps",
+                              "3", f"train.checkpoint_dir={tmp}/chain"], env=env)
+        straight = []
+        for run in ("a", "b"):
+            _cli_json([*base, f"train.checkpoint_dir={tmp}/{run}"])
+            straight.append(Checkpointer(f"{tmp}/{run}").restore(step=9))
+        r = chain_run.result()[0]
         if r.returncode != 0:
             raise AssertionError(f"recycle: exit {r.returncode}\n{r.stderr[-4000:]}")
         recs = [json.loads(line) for line in open(f"{tmp}/chain/recycles.jsonl")]
@@ -1230,10 +1341,6 @@ def phase_recycle() -> dict:
             raise AssertionError(f"recycle: records {recs}, final {final}, steps {steps}, "
                                  f"stderr {r.stderr[-1500:]}")
         chain = Checkpointer(f"{tmp}/chain").restore(step=9)
-        straight = []
-        for run in ("a", "b"):
-            _cli_json([*base, f"train.checkpoint_dir={tmp}/{run}"])
-            straight.append(Checkpointer(f"{tmp}/{run}").restore(step=9))
         bitwise = _state_equal(chain, straight[0])
         chain_vs_straight = _max_diff(chain, straight[0])
         straight_vs_straight = _max_diff(straight[0], straight[1])
@@ -1244,7 +1351,7 @@ def phase_recycle() -> dict:
             "chain_equals_straight_bitwise": bitwise,
             "chain_vs_straight_max_abs": chain_vs_straight,
             "straight_vs_straight_max_abs": straight_vs_straight,
-            "max_cuda_mb": [x.get("max_cuda_mb") for x in recs], "chain_wall_s": chain_s}
+            "max_cuda_mb": [x.get("max_cuda_mb") for x in recs], "chain_wall_s": chain_run.wall_s}
 
 
 def phase_soak(fp) -> dict:
@@ -1275,18 +1382,24 @@ def phase_soak(fp) -> dict:
     return {"phase": "soak", **out, "launches": launches, "wall_s": wall}
 
 
-def phase_schedule_soak() -> dict:
+def start_schedule_soak() -> dict:
     """``python -m crfr_torch.bench.schedule_soak --smoke --device cuda`` in a
-    child (its ``train`` child recycles twice): exit 0, recycles at (20, 1)
-    and (40, 2), a stream with no gap ending at step 48, the warmup and both
-    drops as configured, and ``analyze``'s keys."""
-    root = Path(__file__).resolve().parent
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", "crfr_torch.bench.schedule_soak", "--smoke",
-                            "--device", "cuda", "--workdir", tmp], cwd=root, env=_child_env(),
-                           capture_output=True, text=True, timeout=600)
-        wall = time.perf_counter() - t0
+    child, in the background (beside the recycle phase)."""
+    tmp = tempfile.mkdtemp()
+    return {"tmp": tmp, "run": children([sys.executable, "-m", "crfr_torch.bench.schedule_soak",
+                                         "--smoke", "--device", "cuda", "--workdir", tmp],
+                                        env=_child_env())}
+
+
+def phase_schedule_soak(started: dict) -> dict:
+    """``start_schedule_soak``'s child (its ``train`` child recycles twice):
+    exit 0, recycles at (20, 1) and (40, 2), a stream with no gap ending at
+    step 48, the warmup and both drops as configured, and ``analyze``'s
+    keys."""
+    try:
+        r = started["run"].result()[0]
+    finally:
+        shutil.rmtree(started["tmp"], ignore_errors=True)
     if r.returncode != 0:
         raise AssertionError(f"schedule_soak: exit {r.returncode}\n{r.stderr[-4000:]}")
     res = json.loads(r.stdout.strip().splitlines()[-1])
@@ -1296,7 +1409,7 @@ def phase_schedule_soak() -> dict:
             != [(20, 1), (40, 2)] or res["continuity_gaps"] or res["final_step"] != 48
             or not res["warmup_ok"] or not all(d["lr_ok"] for d in res["drops"])):
         raise AssertionError(f"schedule_soak: {res}")
-    return {"phase": "schedule_soak", "wall_s": wall, **res}
+    return {"phase": "schedule_soak", "wall_s": started["run"].wall_s, **res}
 
 
 def phase_debug() -> dict:
@@ -1560,31 +1673,35 @@ def phase_sr_extract(fp) -> dict:
             "bicubic_ms_per_batch_runs": runs_bic}
 
 
-def phase_sr_cli() -> dict:
-    """``train-sr`` for 4 steps, then resumed to 6, in child processes."""
+def start_sr_cli() -> dict:
+    """``train-sr`` for 4 steps, then resumed to 6, in child processes one
+    after the other, in the background (beside the distill_cli phase)."""
+    tmp = tempfile.mkdtemp()
+    # 64 synthetic identities (the labels go unused) in place of the
+    # preset's 10,572 prototypes, which take most of a run to draw
+    ov = ["data.num_classes=64", "train.batch_size=16", "train.checkpoint_every_steps=2",
+          f"train.checkpoint_dir={tmp}/ck"]
+    cmd = [sys.executable, "-m", "crfr_torch", "train-sr", "--preset", "casia_arcface",
+           "--scale", str(SR_SCALE), *ov]
+    return {"tmp": tmp, "ov": ov, "runs": children([*cmd, "--max-steps", "4"],
+                                                   [*cmd, "--max-steps", "6", "--resume"],
+                                                   env=_child_env())}
+
+
+def phase_sr_cli(started: dict) -> dict:
+    """``start_sr_cli``'s runs: 4 steps, then a resume at 4 that ends at 6;
+    a trainer restored from step 4 equals the saved state bit for bit."""
     from crfr_torch.configs import get_config
     from crfr_torch.train.checkpoints import Checkpointer
     from crfr_torch.train.sr_loop import SRTrainer
 
-    root = Path(__file__).resolve().parent
-    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        [str(root), *filter(None, [os.environ.get("PYTHONPATH")])])}
-    with tempfile.TemporaryDirectory() as tmp:
-        # 64 synthetic identities (the labels go unused) in place of the
-        # preset's 10,572 prototypes, which take most of a run to draw
-        ov = ["data.num_classes=64", "train.batch_size=16", "train.checkpoint_every_steps=2",
-              f"train.checkpoint_dir={tmp}/ck"]
-        runs = []
-        t0 = time.perf_counter()
-        for extra in (["--max-steps", "4"], ["--max-steps", "6", "--resume"]):
-            r = subprocess.run([sys.executable, "-m", "crfr_torch", "train-sr", "--preset",
-                                "casia_arcface", "--scale", str(SR_SCALE), *ov, *extra],
-                               cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    tmp, ov = started["tmp"], started["ov"]
+    try:
+        runs = started["runs"].result()
+        for r in runs:
             if r.returncode != 0:
                 raise AssertionError(f"sr_cli: exit {r.returncode}\n{r.stdout[-2000:]}\n"
                                      f"{r.stderr[-4000:]}")
-            runs.append(r)
-        wall = time.perf_counter() - t0
         finals = [json.loads(r.stdout.strip().splitlines()[-1]) for r in runs]
         if [f["steps"] for f in finals] != [4, 6] or "resumed SR from step 4" not in runs[1].stderr \
                 or not all(np.isfinite([f["g_loss"], f["d_loss"]]).all() for f in finals):
@@ -1597,9 +1714,11 @@ def phase_sr_cli() -> dict:
             raise AssertionError("sr_cli: a trainer restored from step 4 differs from the "
                                  "saved state")
         steps = ck.steps()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return {"phase": "sr_cli", "final": finals[-1], "steps": [f["steps"] for f in finals],
             "resumed_from": 4, "checkpoints": steps, "restored_equals_saved": True,
-            "wall_s_two_runs": wall}
+            "wall_s_two_runs": started["runs"].wall_s}
 
 
 DISTILL_JOINT_B = 256                  # the joint path's batch: G in train mode saves
@@ -1745,17 +1864,15 @@ def phase_distill(fp) -> dict:
 
 
 def phase_distill_cli() -> dict:
-    """``train`` for 2 steps (the teacher), then ``train-distill`` for 4
-    steps, ``--resume`` to 6, and 6 straight, in child processes with
-    cuDNN's deterministic algorithms; then 2 steps with a frozen G from an
-    SR checkpoint (``--sr-ckpt``)."""
+    """``train`` for 2 steps in this process (the teacher), then in child
+    processes with cuDNN's deterministic algorithms, side by side:
+    ``train-distill`` for 4 steps and ``--resume`` to 6, 6 straight, and 2
+    steps with a frozen G from an SR checkpoint (``--sr-ckpt``)."""
     from crfr_torch.configs import get_config
     from crfr_torch.train.checkpoints import Checkpointer
     from crfr_torch.train.sr_loop import SRTrainer
 
-    root = Path(__file__).resolve().parent
-    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8", "PYTHONPATH": os.pathsep.join(
-        [str(root), *filter(None, [os.environ.get("PYTHONPATH")])])}
+    env = {**_child_env(), "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
     launcher = ("import sys, torch; torch.backends.cudnn.deterministic = True; "
                 "from crfr_torch.cli import main; sys.exit(main(sys.argv[1:]))")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1764,32 +1881,31 @@ def phase_distill_cli() -> dict:
         cfg = get_config("casia_arcface", ov)
         Checkpointer(f"{tmp}/sr").save(0, SRTrainer(cfg, scale=SR_SCALE, device="cuda")
                                        .state_dict(), cfg.to_json())
-        runs = []
-
-        def run(*args):
-            r = subprocess.run([sys.executable, "-c", launcher, *args], cwd=root, env=env,
-                               capture_output=True, text=True, timeout=600)
-            if r.returncode != 0:
-                raise AssertionError(f"distill_cli: {args[:1]} exit {r.returncode}\n"
-                                     f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
-            runs.append(r)
-            return json.loads(r.stdout.strip().splitlines()[-1])
-
         t0 = time.perf_counter()
-        run("train", "--preset", "casia_arcface", *ov, f"train.checkpoint_dir={tmp}/t",
-            "--max-steps", "2")
-        base = ["train-distill", "--preset", "casia_arcface", "--teacher-ckpt", f"{tmp}/t", *ov]
-        finals = [run(*base, f"train.checkpoint_dir={tmp}/a", "--max-steps", "4"),
-                  run(*base, f"train.checkpoint_dir={tmp}/a", "--max-steps", "6", "--resume"),
-                  run(*base, f"train.checkpoint_dir={tmp}/b", "--max-steps", "6")]
-        sr = run(*base, f"train.checkpoint_dir={tmp}/c", "--max-steps", "2", "--sr-ckpt",
-                 f"{tmp}/sr", "--sr-scale", str(SR_SCALE))
+        _cli_json(["train", "--preset", "casia_arcface", *ov, f"train.checkpoint_dir={tmp}/t",
+                   "--max-steps", "2"])
+        base = [sys.executable, "-c", launcher, "train-distill", "--preset", "casia_arcface",
+                "--teacher-ckpt", f"{tmp}/t", *ov]
+        chain = children([*base, f"train.checkpoint_dir={tmp}/a", "--max-steps", "4"],
+                         [*base, f"train.checkpoint_dir={tmp}/a", "--max-steps", "6", "--resume"],
+                         env=env)
+        straight_run = children([*base, f"train.checkpoint_dir={tmp}/b", "--max-steps", "6"],
+                                env=env)
+        sr_run = children([*base, f"train.checkpoint_dir={tmp}/c", "--max-steps", "2",
+                           "--sr-ckpt", f"{tmp}/sr", "--sr-scale", str(SR_SCALE)], env=env)
+        runs = chain.result() + straight_run.result() + sr_run.result()
         wall = time.perf_counter() - t0
+        for r in runs:
+            if r.returncode != 0:
+                raise AssertionError(f"distill_cli: {r.args[3:4]} exit {r.returncode}\n"
+                                     f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+        finals = [json.loads(r.stdout.strip().splitlines()[-1]) for r in runs[:3]]
+        sr = json.loads(runs[3].stdout.strip().splitlines()[-1])
         if [f["steps"] for f in finals] != [4, 6, 6] or sr["steps"] != 2 \
-                or "resumed student from step 4" not in runs[2].stderr \
+                or "resumed student from step 4" not in runs[1].stderr \
                 or not all(np.isfinite(f["loss"]) for f in finals + [sr]):
             raise AssertionError(f"distill_cli: {finals}, {sr}, resumed run's stderr "
-                                 f"{runs[2].stderr[-500:]}")
+                                 f"{runs[1].stderr[-500:]}")
         resumed = Checkpointer(f"{tmp}/a/student").restore(step=6)
         straight = Checkpointer(f"{tmp}/b/student").restore(step=6)
         if not _nested_equal(resumed, straight):
@@ -1957,6 +2073,136 @@ def phase_int8_embed(fp) -> dict:
             "ms_per_batch": {k: min(v) for k, v in ms.items()}, "ms_per_batch_turns": ms,
             "imgs_per_s": {k: 1e3 * B / min(v) for k, v in ms.items()},
             "convs_ms_sum": total, "conv_shapes": table}
+
+
+BENCH_STEPS = 10          # bench's --steps: crfr's 30 cut to 10 (three windows of 10 batches)
+BENCH_KEYS = {"imgs_per_sec", "per_batch_ms", "int8"}       # crfr's line, crfr/cli.py:1028-1030
+
+
+def phase_bench(fp, embed: dict, int8_embed: dict) -> dict:
+    """``python -m crfr_torch bench`` and ``bench --int8`` at B=256 in child
+    processes, one after the other with nothing beside them: ``crfr``'s
+    keys, ``per_batch_ms`` within 5% of the embed and int8_embed phases'
+    in-process ms a batch of the same pipeline; one in-process
+    ``run_throughput`` of each (steps 2, one window) with the counters from
+    0 just before it: kernel 1 once a batch; and the CPU yardstick
+    (``bench.torch_reference.measure_cpu_reference``, uncached) on the
+    host's cores beside the card's imgs/s, where PIL imports."""
+    from crfr_torch.bench.throughput import run_throughput
+
+    out = {}
+    for int8 in (False, True):
+        name = "int8" if int8 else "bf16"
+        r = _run_child([sys.executable, "-m", "crfr_torch", "bench", "--batch", str(B),
+                        "--steps", str(BENCH_STEPS), *(["--int8"] if int8 else [])],
+                       _child_env())
+        if r.returncode != 0:
+            raise AssertionError(f"bench {name}: exit {r.returncode}\n{r.stderr[-4000:]}")
+        line = json.loads(r.stdout.strip().splitlines()[-1])
+        in_process = int8_embed["ms_per_batch"]["int8"] if int8 else embed["ms_per_batch"]
+        rel = line["per_batch_ms"] / in_process - 1
+        if set(line) != BENCH_KEYS or line["int8"] is not int8 or not abs(rel) <= 0.05:
+            raise AssertionError(f"bench {name}: {line} against the in-process "
+                                 f"{in_process} ms a batch ({rel:+.4f})")
+        _zero_counts(fp)
+        run_throughput(batch=B, steps=2, repeats=1, int8=int8, device="cuda")
+        torch.cuda.synchronize()
+        launches = _counts(fp)
+        want = {"fused_degrade_normalize": 4, LOWS_NAME: 0, "fused_resize_normalize": 0}
+        if launches != want:         # batches: the first, one re-warm, two timed
+            raise AssertionError(f"bench {name}: four batches launched {launches}, want {want}")
+        out[name] = {"line": line, "in_process_ms_per_batch": in_process,
+                     "rel_to_in_process": rel, "launches": launches, "launches_batches": 4}
+    try:
+        import PIL  # noqa: F401
+    except ImportError:
+        cpu = {"run": False, "why": "PIL (the pillow package) is not installed"}
+    else:
+        from crfr_torch.bench.torch_reference import measure_cpu_reference
+
+        t0 = time.perf_counter()
+        ips = measure_cpu_reference(use_cache=False)
+        cpu = {"run": True, "imgs_per_sec": ips, "batch": 32, "iters": 3,
+               "threads": torch.get_num_threads(), "seconds": time.perf_counter() - t0,
+               "card_over_cpu": {k: v["line"]["imgs_per_sec"] / ips for k, v in out.items()}}
+    return {"phase": "bench", "batch": B, "steps": BENCH_STEPS, **out, "cpu_reference": cpu,
+            "reduced": {"steps": f"30 -> {BENCH_STEPS}: three windows of {BENCH_STEPS} "
+                                 "batches (crfr's 30) already spread < 1%"}}
+
+
+MS1M_C, MS1M_STEPS = 85742, 10              # ms1m_scale: crfr's 30 steps cut to 10
+MS1M_FIT_STEPS, MS1M_FIT_B = 40, 64         # ms1m_fit: 200 steps of 256 cut (2,560 renders)
+MS1M_SCALE_KEYS = {"backbone", "batch", "ce_impl", "ms1m", "control", "head_marginal_ms",
+                   "loss_first", "loss_after_steps", "ln_C", "peak_allocated_gb", "device"}
+
+
+def start_ms1m_fit() -> dict:
+    """``python -m crfr_torch.bench.ms1m_fit`` at C=85,742, steps and batch
+    cut, in a child in the background: its renders take the host while
+    ``ms1m_scale`` and then the int8_cli phase run here."""
+    tmp = tempfile.mkdtemp()
+    return {"tmp": tmp, "run": children([sys.executable, "-m", "crfr_torch.bench.ms1m_fit",
+                                         "--workdir", tmp, "--classes", str(MS1M_C),
+                                         "--steps", str(MS1M_FIT_STEPS),
+                                         "--batch", str(MS1M_FIT_B), "--device", "cuda"],
+                                        env=_child_env())}
+
+
+def ms1m_scale_run(fp) -> dict:
+    """``bench.ms1m_scale``'s ``main`` in this process at the full shape
+    (C=85,742, IR-50, B=256, streaming CE; control C=1,000), steps cut, with
+    the counters from 0 just before it: the loss finite and falling on the
+    repeated batch, the head's marginal ms and the peak memory printed,
+    kernel 1' once a step."""
+    import contextlib
+
+    from crfr_torch.bench import ms1m_scale
+
+    buf = io.StringIO()
+    torch.cuda.empty_cache()
+    _zero_counts(fp)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = ms1m_scale.main(["--classes", str(MS1M_C), "--steps", str(MS1M_STEPS)])
+    torch.cuda.synchronize()
+    scale_s = time.perf_counter() - t0
+    launches = _counts(fp)
+    scale = json.loads(buf.getvalue().strip().splitlines()[-1])
+    # two run_train_throughput runs (a first step, three windows) and
+    # the repeated batch's first step and MS1M_STEPS more
+    steps = 2 * (1 + 3 * MS1M_STEPS) + 1 + MS1M_STEPS
+    want = {"fused_degrade_normalize": 0, LOWS_NAME: steps, "fused_resize_normalize": 0}
+    if (rc != 0 or set(scale) != MS1M_SCALE_KEYS or launches != want
+            or not np.isfinite([scale["loss_first"], scale["loss_after_steps"]]).all()
+            or not scale["loss_after_steps"] < scale["loss_first"]
+            or not np.isfinite(scale["head_marginal_ms"])
+            or not scale["peak_allocated_gb"] > 0):
+        raise AssertionError(f"ms1m scale: {scale}, launches {launches}, want {want}")
+    return {"scale": scale, "scale_s": scale_s, "scale_steps": steps, "launches": launches}
+
+
+def phase_ms1m(started: dict, scale: dict) -> dict:
+    """``start_ms1m_fit``'s child: exit 0, no gap in the metrics stream,
+    ``final_step`` the steps, the step reference measured on this card;
+    beside it ``ms1m_scale_run``'s results."""
+    try:
+        r = started["run"].result()[0]
+    finally:
+        shutil.rmtree(started["tmp"], ignore_errors=True)
+    if r.returncode != 0:
+        raise AssertionError(f"ms1m fit: exit {r.returncode}\n{r.stdout[-2000:]}\n"
+                             f"{r.stderr[-4000:]}")
+    res = json.loads(r.stdout.strip().splitlines()[-1])
+    if (res["continuity_gaps"] or res["final_step"] != MS1M_FIT_STEPS
+            or not (res["device_step_ms_ref"] or 0) > 0
+            or res["device_step_device"] != torch.cuda.get_device_name(0)
+            or not np.isfinite(res["loss_first"])):
+        raise AssertionError(f"ms1m fit: {res}")
+    return {"phase": "ms1m", **scale, "fit": res, "fit_wall_s": started["run"].wall_s,
+            "reduced": {"scale.steps": f"30 -> {MS1M_STEPS}",
+                        "fit.steps": f"200 -> {MS1M_FIT_STEPS}",
+                        "fit.batch": f"256 -> {MS1M_FIT_B}: {MS1M_FIT_STEPS * MS1M_FIT_B} "
+                                     "renders on the host, not 51,200"}}
 
 
 INT8_CLI_IMGS = 1024      # two full batches of 512: no zero padding in the calibration
@@ -3114,16 +3360,21 @@ def _dist_env(tmp: str, tag: str) -> dict:
             "CRFR_NUM_PROCESSES": str(DIST_WORLD), "CRFR_DIST_BACKEND": "gloo"}
 
 
-def _launch_ranks(argv: list[str], env: dict, what: str, timeout: float = 300) -> list:
+def _launch_ranks(argv: list[str], env: dict, what: str, timeout: float = 300,
+                  wait=None) -> list:
     """``argv`` as DIST_WORLD processes (CRFR_PROCESS_ID 0..), each with a
-    time limit; every one is stopped before this returns. → their
-    (stdout, stderr)."""
+    time limit; ``wait`` (a callable) runs here while they do; every one is
+    stopped before this returns. → their (stdout, stderr)."""
     root = Path(__file__).resolve().parent
     procs = [subprocess.Popen(argv, cwd=root, env={**env, "CRFR_PROCESS_ID": str(r)},
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              start_new_session=True)
              for r in range(DIST_WORLD)]
+    _CHILDREN.extend(procs)
     outs, deadline = [], time.time() + timeout
     try:
+        if wait is not None:
+            wait()
         for p in procs:
             outs.append(p.communicate(timeout=max(deadline - time.time(), 1)))
     finally:
@@ -3138,10 +3389,16 @@ def _launch_ranks(argv: list[str], env: dict, what: str, timeout: float = 300) -
     return outs
 
 
-def _run_rank_case(case: str, tmp: str, timeout: float = 300) -> list[dict]:
-    _launch_ranks([sys.executable, str(Path(__file__).resolve()), "--rank", case, tmp],
-                  _dist_env(tmp, case), case, timeout)
-    return [torch.load(f"{tmp}/{case}_{r}.pt", weights_only=False) for r in range(DIST_WORLD)]
+def _run_rank_cases(cases: list[str], tmp: str, timeout: float = 300,
+                    wait=None) -> dict[str, list[dict]]:
+    """``cases`` one after another in one launch of the rank processes (one
+    start-up for all); ``wait`` runs here meanwhile. → each case's outputs
+    by rank."""
+    what = ",".join(cases)
+    _launch_ranks([sys.executable, str(Path(__file__).resolve()), "--rank", what, tmp],
+                  _dist_env(tmp, what.replace(",", "_")), what, timeout, wait)
+    return {c: [torch.load(f"{tmp}/{c}_{r}.pt", weights_only=False) for r in range(DIST_WORLD)]
+            for c in cases}
 
 
 def _rank_gallery(tmp: str, rank: int) -> dict:
@@ -3248,9 +3505,10 @@ def _rank_train(tmp: str, rank: int) -> dict:
 RANK_CASES = {"gallery": _rank_gallery, "train": _rank_train}
 
 
-def rank_main(case: str, tmp: str) -> int:
+def rank_main(cases: str, tmp: str) -> int:
     """One rank process of the distributed phase, started through the
-    port's own launch variables (``parallel.multihost``)."""
+    port's own launch variables (``parallel.multihost``), running the
+    comma-separated ``cases`` in order."""
     import torch.distributed as dist
 
     from crfr_torch.parallel.multihost import maybe_initialize_distributed, process_index
@@ -3259,8 +3517,8 @@ def rank_main(case: str, tmp: str) -> int:
         raise RuntimeError("no launch described in CRFR_COORDINATOR/_NUM_PROCESSES/_PROCESS_ID")
     try:
         rank = process_index()
-        out = RANK_CASES[case](tmp, rank)
-        torch.save(out, f"{tmp}/{case}_{rank}.pt")
+        for case in cases.split(","):
+            torch.save(RANK_CASES[case](tmp, rank), f"{tmp}/{case}_{rank}.pt")
     finally:
         dist.destroy_process_group()
     return 0
@@ -3284,9 +3542,9 @@ def _dist_f32_reference(batches, ov=DIST_F32_OV) -> dict:
 def _dist_cli(tmp: str) -> dict:
     """``python -m crfr_torch train`` (phase 8's cut, on IR-18) as two
     processes on a ``.crfrpack``: 4 steps, ``--resume`` to 6, and 6
-    straight, with cuDNN's deterministic
-    algorithms; a second straight run only when the first two differ, to
-    bound the difference by the spread of straight runs."""
+    straight beside them (two groups of ranks at once), with cuDNN's
+    deterministic algorithms; a second straight run only when the first
+    two differ, to bound the difference by the spread of straight runs."""
     from crfr_torch.data.records import write_pack
     from crfr_torch.train.checkpoints import Checkpointer
 
@@ -3299,13 +3557,8 @@ def _dist_cli(tmp: str) -> dict:
     ov = [*CLI_OV, "model.backbone=ir_18", "train.checkpoint_every_steps=2",
           "train.log_every=1", f"mesh.data={DIST_WORLD}", "--train-records",
           f"{tmp}/train.crfrpack"]
-    t0 = time.perf_counter()
-    runs = {}
-    for i, (tag, steps, resume) in enumerate((("a", 4, False), ("a", 6, True), ("b", 6, False),
-                                               ("c", 6, False))):
-        if tag == "c" and _state_equal(*[Checkpointer(f"{tmp}/{t}").restore(step=6)
-                                         for t in ("a", "b")]):
-            break
+
+    def launch(i: int, tag: str, steps: int, resume: bool) -> list:
         argv = [sys.executable, "-c", launcher, "train", "--preset", "casia_arcface", *ov,
                 f"train.checkpoint_dir={tmp}/{tag}", "--max-steps", str(steps),
                 *(["--resume"] if resume else [])]
@@ -3315,7 +3568,15 @@ def _dist_cli(tmp: str) -> dict:
         if finals != [{"final_step": steps}] * DIST_WORLD or (
                 resume and not all("resumed from step 4" in e for _, e in outs)):
             raise AssertionError(f"distributed cli: {finals}, {[e[-400:] for _, e in outs]}")
-        runs[f"{tag}{steps}"] = outs
+        return outs
+
+    t0 = time.perf_counter()
+    # 4 steps and --resume to 6 beside 6 straight: two groups of ranks at once
+    chain = Background(lambda: [launch(0, "a", 4, False), launch(1, "a", 6, True)])
+    runs = {"b6": launch(2, "b", 6, False)}
+    runs["a4"], runs["a6"] = chain.result()
+    if not _state_equal(*[Checkpointer(f"{tmp}/{t}").restore(step=6) for t in ("a", "b")]):
+        runs["c6"] = launch(3, "c", 6, False)
     wall = time.perf_counter() - t0
     a, b = (Checkpointer(f"{tmp}/{t}").restore(step=6) for t in ("a", "b"))
     diff_ab = _max_diff(a, b)
@@ -3336,21 +3597,50 @@ def _dist_cli(tmp: str) -> dict:
             "wall_s": wall, "launch_pairs": len(runs)}
 
 
-def phase_distributed(gallery_ref: dict) -> dict:
+def start_dist_cli() -> dict:
+    """(c) of phase 24, ``_dist_cli``, in the background (beside the
+    eval_cli phase, whose work is not timed)."""
+    tmp = tempfile.mkdtemp()
+    return {"tmp": tmp, "run": Background(lambda: _dist_cli(tmp))}
+
+
+def phase_distributed(gallery_ref: dict, cli_started: dict) -> dict:
     """Two rank processes on the one card through the port's launch
     variables (gloo: see ``_dist_env``), against the one-process runs in
-    this call: (a) the gallery phase's bank row-sharded, (b) the preset's
-    training at full width as data=2 and as model=2 (the class-sharded
-    head), float32 against the one-process trainer, then bf16 at batch
-    512, (c) the train CLI's resume."""
+    this call: (c) the train CLI's resume (``start_dist_cli``'s, awaited
+    first, so nothing runs beside (b)'s timed steps), (a) the gallery
+    phase's bank row-sharded, (b) the preset's training at full width as
+    data=2 and as model=2 (the class-sharded head), float32 against the
+    one-process trainer, then bf16 at batch 512."""
     from crfr_torch.data.synthetic import SyntheticFaces
 
-    torch.cuda.empty_cache()
     t_phase = time.perf_counter()
+    try:
+        cli = cli_started["run"].result()
+    finally:
+        shutil.rmtree(cli_started["tmp"], ignore_errors=True)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        # (a) the gallery
+        # one launch of the ranks runs (a) and (b); the one-process float32
+        # reference of (b) is computed here meanwhile
         np.savez(f"{tmp}/gallery_in.npz", probes=gallery_ref["probes"])
-        ranks = _run_rank_case("gallery", tmp)
+        faces = SyntheticFaces(num_classes=64, image_size=S, seed=0)
+        rng = np.random.default_rng(13)
+        batches = []
+        for _ in range(DIST_F32_STEPS):
+            x, y = faces.sample(rng, DIST_F32_B)
+            batches.append((torch.from_numpy(x.astype(np.uint8)),
+                            torch.from_numpy(y.astype(np.int64) * 165)))    # over all 10,572
+        torch.save({"batches": batches, "ov": DIST_F32_OV, "layouts": list(DIST_LAYOUTS),
+                    "bf16": True}, f"{tmp}/train_in.pt")
+        ref = {}
+        t0 = time.perf_counter()
+        by_case = _run_rank_cases(["gallery", "train"], tmp, timeout=500,
+                                  wait=lambda: ref.update(_dist_f32_reference(batches)))
+        ranks_wall = time.perf_counter() - t0
+
+        # (a) the gallery
+        ranks = by_case["gallery"]
         want_s, want_l, planted = gallery_ref["s"], gallery_ref["l"], gallery_ref["planted"]
         for r, out in enumerate(ranks):
             err = float(np.abs(out["s"] - want_s).max())
@@ -3371,19 +3661,7 @@ def phase_distributed(gallery_ref: dict) -> dict:
                    "merge_ms_by_rank": [o["merge_ms"] for o in ranks]}
 
         # (b) training at full width
-        faces = SyntheticFaces(num_classes=64, image_size=S, seed=0)
-        rng = np.random.default_rng(13)
-        batches = []
-        for _ in range(DIST_F32_STEPS):
-            x, y = faces.sample(rng, DIST_F32_B)
-            batches.append((torch.from_numpy(x.astype(np.uint8)),
-                            torch.from_numpy(y.astype(np.int64) * 165)))    # over all 10,572
-        torch.save({"batches": batches, "ov": DIST_F32_OV, "layouts": list(DIST_LAYOUTS),
-                    "bf16": True}, f"{tmp}/train_in.pt")
-        ref = _dist_f32_reference(batches)
-        t0 = time.perf_counter()
-        ranks = _run_rank_case("train", tmp, timeout=400)
-        train_wall = time.perf_counter() - t0
+        ranks = by_case["train"]
         train = {}
         for name in DIST_LAYOUTS:
             got = torch.load(f"{tmp}/state_{name}.pt", weights_only=True)
@@ -3426,10 +3704,8 @@ def phase_distributed(gallery_ref: dict) -> dict:
                            "launches": per_rank[0]["launches"],
                            "extract_launches": per_rank[0]["extract_launches"]}
 
-        # (c) the CLI
-        cli = _dist_cli(tmp)
     return {"phase": "distributed", "ranks": DIST_WORLD, "backend": "gloo",
-            "gallery": gallery, "train": train, "train_wall_s": train_wall, "cli": cli,
+            "gallery": gallery, "train": train, "ranks_wall_s": ranks_wall, "cli": cli,
             "f32_batch": DIST_F32_B, "f32_steps": DIST_F32_STEPS, "bf16_batch": TRAIN_B,
             "bf16_steps": DIST_BF16_STEPS, "wall_s": time.perf_counter() - t_phase,
             "launches": {"gallery": {"bank_tilemax": gallery["launches_by_rank"][0]},
@@ -3461,7 +3737,16 @@ def main() -> int:
 
     if only == ["distributed"]:         # phase 24 alone, with the gallery it compares with
         emit(phase_gallery(bs))
-        emit({**phase_distributed(GALLERY_REF), "card": smi})
+        emit({**phase_distributed(GALLERY_REF, start_dist_cli()), "card": smi})
+        return 0
+    if only == ["bench"]:               # phases 25-26, with the phases bench compares with
+        embed, _ = phase_embed(fp)
+        emit({**embed, "card": smi})
+        int8_embed = phase_int8_embed(fp)
+        emit({**int8_embed, "card": smi})
+        emit({**phase_bench(fp, embed, int8_embed), "card": smi})
+        fit = start_ms1m_fit()
+        emit({**phase_ms1m(fit, ms1m_scale_run(fp)), "card": smi})
         return 0
     kernels = phase_kernels(fp) + [phase_kernels_bank(bs), phase_kernels_lows(fp)]
     emit({"phase": "kernels", "cases": sum(len(k["cases"]) for k in kernels)})
@@ -3476,29 +3761,38 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(fp)
     emit({**train, "card": smi})
-    emit(phase_cli())
+    cli = start_cli()               # the CLI's children run beside train_eval and recycle
     train_eval = phase_train_eval(fp)
     emit({**train_eval, "card": smi})
+    schedule_soak = start_schedule_soak()       # its children run beside recycle's
     recycle = phase_recycle()
     emit({**recycle, "card": smi})
+    emit(phase_cli(cli))
+    emit({**phase_schedule_soak(schedule_soak), "card": smi})
     emit(phase_debug())             # before the soak's profiler sessions (see phase_debug)
     soak = phase_soak(fp)
     emit({**soak, "card": smi})
-    emit({**phase_schedule_soak(), "card": smi})
     emit({**phase_roofline(embed), "card": smi})
     torch.cuda.empty_cache()
     sr_train = phase_sr_train(fp)
     emit({**sr_train, "card": smi})
     sr_extract = phase_sr_extract(fp)
     emit({**sr_extract, "card": smi})
-    emit(phase_sr_cli())
     distill = phase_distill(fp)
     emit({**distill, "card": smi})
+    sr_cli = start_sr_cli()         # its children run beside distill_cli's
     emit(phase_distill_cli())
+    emit(phase_sr_cli(sr_cli))
     int8_embed = phase_int8_embed(fp)
     emit({**int8_embed, "card": smi})
+    bench = phase_bench(fp, embed, int8_embed)
+    emit({**bench, "card": smi})
+    fit = start_ms1m_fit()          # its child runs beside ms1m_scale and int8_cli
+    scale = ms1m_scale_run(fp)
     int8_cli = phase_int8_cli(fp, bs)
     emit(int8_cli)
+    ms1m = phase_ms1m(fit, scale)
+    emit({**ms1m, "card": smi})
     headline = phase_headline(fp)
     emit({**headline, "card": smi})
     torch.cuda.empty_cache()
@@ -3518,9 +3812,10 @@ def main() -> int:
         emit(phase_serve_cli(ex_state, served, tmp))
     del ex_state, served
     torch.cuda.empty_cache()
+    dist_cli = start_dist_cli()     # phase 24's CLI ranks run beside eval_cli
     eval_cli = phase_eval_cli(fp, bs)
     emit(eval_cli)
-    distributed = phase_distributed(GALLERY_REF)
+    distributed = phase_distributed(GALLERY_REF, dist_cli)
     emit({**distributed, "card": smi})
     # launches on each kernel's own main path: embed for the int form of the
     # preprocessing kernel, the gallery scan for bank_tilemax, a train step
@@ -3531,7 +3826,8 @@ def main() -> int:
              "soak": soak["launches"],
              "sr_train": sr_train["launches"], "sr_extract": sr_extract["launches"],
              **{f"distill_{p}": v["launches"] for p, v in distill["paths"].items()},
-             "int8_embed": int8_embed["launches"],
+             "int8_embed": int8_embed["launches"], "bench": bench["bf16"]["launches"],
+             "bench_int8": bench["int8"]["launches"], "ms1m_scale": ms1m["launches"],
              **({"int8_cli_match": int8_cli["launches"]} if int8_cli["run"] else {}),
              "headline": headline["launches"], "detect": detect["launches"],
              "train_mtcnn": detect["train_launches"], "recognize": recognize["launches"],
@@ -3556,4 +3852,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_children()

@@ -47,9 +47,11 @@
         --out records.crfrpack [--size 112]
     python -m crfr_torch serve-http --artifact model.crfrt [--gallery-npz BANK.npz]
         [--mutable-gallery [--gallery-slab N]] [--host H] [--port 8321] [--window-ms 2]
+    python -m crfr_torch bench [--batch 256] [--steps 30] [--int8] [--device cuda|cpu]
 
-Each command but ``pack`` and ``serve-http`` takes ``--device cuda|cpu``,
-``--preset P`` and key=value overrides.
+Each command but ``pack``, ``serve-http`` and ``bench`` takes ``--device
+cuda|cpu``, ``--preset P`` and key=value overrides; ``bench`` takes
+``--device``.
 
 More than one device: one process per device, launched by ``torchrun
 --nproc-per-node N -m crfr_torch ...`` or with the ``CRFR_COORDINATOR``,
@@ -129,7 +131,10 @@ checkpoint. ``export`` writes a serving artifact (``serve.export_embed``)
 on ``--device``, which ``serve-http --artifact`` serves on that device,
 printing ``{"serving": URL, ...}`` first. ``pack`` writes ``.crfrpack``
 records from an identity folder tree or an MXNet ``.rec``; it writes no
-ArrayRecord.
+ArrayRecord. ``bench`` times the embed pipeline of
+``bench.throughput.run_throughput`` (IR-50 bf16, or its int8 twin with
+``--int8``, seeded weights, random uint8 112² images degraded to 16 px)
+and prints ``crfr``'s line ``{"imgs_per_sec", "per_batch_ms", "int8"}``.
 """
 
 from __future__ import annotations
@@ -1029,6 +1034,18 @@ def cmd_serve_http(args, overrides: list[str]) -> int:
     return 0
 
 
+def cmd_bench(args, overrides: list[str]) -> int:
+    """Embed throughput of ``bench.throughput.run_throughput``, as
+    ``crfr``'s ``bench`` prints it."""
+    from crfr_torch.bench.throughput import run_throughput
+
+    res = run_throughput(batch=args.batch, steps=args.steps, int8=bool(args.int8),
+                         device=args.device)
+    print(json.dumps({"imgs_per_sec": res.imgs_per_sec, "per_batch_ms": res.per_batch_ms,
+                      "int8": bool(args.int8)}), flush=True)
+    return 0
+
+
 def _add_sr_args(p, help_ckpt: str) -> None:
     """The frozen-hallucinator flags of every consumer of --sr-ckpt."""
     p.add_argument("--sr-ckpt", default="", help=help_ckpt)
@@ -1285,6 +1302,14 @@ def main(argv: list[str] | None = None) -> int:
                    help="capacity rounding slab of --mutable-gallery "
                         "(default ServingBank.SLAB=65536)")
     p.set_defaults(fn=cmd_serve_http)
+
+    p = sub.add_parser("bench", help="embed throughput (crfr's bench line)")
+    p.add_argument("--batch", type=int, default=256)
+    p.add_argument("--steps", type=int, default=30)
+    p.add_argument("--int8", action="store_true",
+                   help="bench the int8 PTQ embed path instead of bf16")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_bench)
 
     args, extra = ap.parse_known_args(argv)
     args._argv = list(sys.argv[1:] if argv is None else argv)     # for --recycle-every-steps

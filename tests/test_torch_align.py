@@ -18,6 +18,7 @@ a coordinate error of 1e-4 px + 2e-7 of the coordinate); every other pixel must 
 a marked one may differ by one level (the rule of test_torch_bicubic.py).
 """
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import fcntl
 import os
 import subprocess

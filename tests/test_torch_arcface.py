@@ -3,6 +3,7 @@ on the CPU: the margin families at 1e-6, dense and streaming CE and their
 gradients against ``jax.grad``, the learning-rate schedules over steps
 0..3000, and the weight-decay mask."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import math
 
 import numpy as np

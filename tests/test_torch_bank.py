@@ -4,6 +4,7 @@ the int8 scan and ``topk_matches_bank`` (labels exact, scores within 1e-6),
 ``.npz`` banks read and written by either package, and the bank lifecycle
 cases of tests/test_bank_lifecycle.py on ``ServingBank(device="cpu")``."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import threading
 
 from types import SimpleNamespace

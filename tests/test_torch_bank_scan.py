@@ -6,6 +6,7 @@ masked victim row, and a probe count that is not a multiple of 32. Labels
 exact, scores within 1e-6 (the fused-vs-scan tolerance of crfr's tests;
 the two stacks' probe scales may differ in the last bit)."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch

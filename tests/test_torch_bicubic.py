@@ -10,6 +10,7 @@ through the later passes' taps). Every other pixel must equal both crfr's
 output and the float64 ``floor(x + 0.5)`` result exactly; a marked pixel may
 differ by one level. Exact ties are pinned to half-up by their own test."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch

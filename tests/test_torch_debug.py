@@ -5,6 +5,7 @@ changed, on exit and on error; ``no_host_transfers`` does nothing without
 a card; ``trace`` writes a Chrome trace holding an ``annotate`` span;
 ``timed`` returns a positive time and the last result."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import json
 
 import pytest

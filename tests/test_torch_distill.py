@@ -37,6 +37,7 @@
 - A resumed trainer's next step equals the uninterrupted one's bit for bit.
 """
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch

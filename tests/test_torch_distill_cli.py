@@ -8,6 +8,7 @@ trained jointly (``--sr-finetune``), whose state and Adam moments
 checkpoint with the student. ``--eval-bin`` writes what the restored
 student reads. What is not ported raises."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import json
 
 import numpy as np

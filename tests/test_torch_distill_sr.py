@@ -25,6 +25,7 @@ priors and random correction heads (tests/test_torch_sr_models.py's
   too), and ``sr_apply`` is a frozen snapshot of G.
 """
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch

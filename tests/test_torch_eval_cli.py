@@ -11,6 +11,7 @@ crfr's accuracy, rank-1 and CMC exactly and its other numbers within 1e-4.
 ``eval-verification --sr-ckpt`` (G at init) runs through the hallucinated
 probe path. Missing inputs raise."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import json
 
 import numpy as np

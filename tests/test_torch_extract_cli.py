@@ -10,6 +10,7 @@ stays within cosine 0.98 of the float one (crfr's bound,
 tests/test_quant.py). The checkpoint: ``crfr_torch train`` for 2 steps of
 IR-18 at 32 px in float32."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import json
 import re
 

@@ -4,6 +4,7 @@ and tolerances: float32 out atol 2e-3 / rtol 1e-3, bf16 out 2e-2. The
 kernel itself is held against the same plain versions on the card in
 tests/test_torch_kernels_gpu.py."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch

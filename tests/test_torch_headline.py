@@ -14,6 +14,7 @@ row off and on (and at crfr's micro scale, marked slow as crfr's own test
 is), with the table's schema, the stage checkpoints and the JSON
 artifact."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import dataclasses
 import json
 import os

@@ -5,6 +5,7 @@ open-set results (rank-1, CMC, TPIR@FPIR), IJB-C pooling (within 1e-6),
 exact TAR@FAR and the two-gallery 1:N, on float and int8 galleries.
 ``approx`` is accepted and gives the exact answer."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import logging
 
 import numpy as np

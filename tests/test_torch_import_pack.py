@@ -10,6 +10,7 @@ that ``Trainer`` restores to those weights; ``pack_image_folder``,
 does and ``evaluate_bin`` gives crfr's result for the same embedder; the
 ``pack`` command; the dataset readers."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import io
 import json
 import struct

@@ -3,6 +3,7 @@ with the weights carried across by crfr_torch.models.convert.params_from_jax
 and the BN statistics randomised so eval-mode normalisation is exercised.
 Tolerance as tests/test_irse_parity.py: atol 2e-3, rtol 1e-3."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -22,6 +22,7 @@ neither JAX nor crfr, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py
 """
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import pytest
 import torch
 

@@ -8,6 +8,7 @@ dtype policy, the int8 quantization leaving the grouped convs float, and
 the bench pipeline on the CPU.
 """
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ runs crfr's: the same detections, boxes and landmarks within 1e-3 px,
 scores within 1e-5.
 """
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch

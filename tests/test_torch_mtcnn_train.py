@@ -12,6 +12,7 @@ test_torch_sr_train.py). ``train_mtcnn_synthetic`` from crfr's weights with
 the same seed: the same final losses and weights by the same rules.
 """
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -26,6 +26,7 @@ past which its ranks are killed and the test fails.
   batches.
 """
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import os
 
 import numpy as np

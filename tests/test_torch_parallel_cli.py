@@ -16,6 +16,7 @@ the gloo group joined through a file, every process with a time limit.
   what one process prints.
 """
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import json
 import os
 import subprocess

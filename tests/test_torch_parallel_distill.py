@@ -13,6 +13,7 @@
 """
 
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 
 import jax

@@ -16,6 +16,7 @@ steps at four ranks must also equal the port at one rank. A 2×2 run with
 restores in a one-process trainer.
 """
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -7,6 +7,7 @@ embeddings of the same crops within 1e-4 relative; ``verify`` and the
 empty case as crfr's; the cascade path and a checkpoint round trip.
 """
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -16,6 +16,7 @@ operators differ, ROADMAP.md §3). The product on CPU tensors is the plain
 int32 matmul; the tests run on one thread.
 """
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import re
 
 import numpy as np

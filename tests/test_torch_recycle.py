@@ -10,6 +10,7 @@ cross two process generations and end in the state of a straight 9-step
 run bit for bit, with one metrics stream, on synthetic batches and on a
 ``.crfrpack`` (whose pipeline state is saved at each boundary)."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import json
 import os
 import subprocess

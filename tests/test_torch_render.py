@@ -4,6 +4,7 @@ verification pairs, array for array (exactly), at hard=0 and at hard=0.5
 (occluders, blur and the JPEG round trip); without PIL the JPEG nuisance
 raises an error that names it."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import sys
 
 import numpy as np

@@ -7,6 +7,7 @@ rule (K to the wgmma's 16 and N to 8 in bf16, peaks 989.4 TFLOP/s and
 PReLU as its docstring says, worked by hand; and ``xprof_check``'s
 ``train_roofline`` reads a profile against them."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import math
 
 import pytest

@@ -5,6 +5,7 @@ pairs interleaved, genuine at even indices, as both renderers draw them);
 ``test_analyze_verdicts``; ``bn_drift`` over two port checkpoints, by
 hand."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import json
 import os
 

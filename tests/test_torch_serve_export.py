@@ -10,6 +10,7 @@ products); the meta keys and the errors; ``serve_artifact`` against
 ``make_server``; and ``python -m crfr_torch export`` then ``serve-http
 --artifact`` in a child process."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import io
 import json
 import os

@@ -10,6 +10,7 @@ neither JAX nor crfr:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_serve_export_gpu.py
 """
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import pytest
 import torch
 

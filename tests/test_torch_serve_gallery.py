@@ -6,6 +6,7 @@ and ``recall``; the mutable lifecycle (``/enroll``, ``/remove``,
 tests/test_bank_lifecycle.py. Labels and status codes equal; scores, which
 the servers round to 4 decimals, within 1e-4."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import io
 import json
 import threading

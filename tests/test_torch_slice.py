@@ -4,6 +4,7 @@ flip-TTA sum, B=4, float32) with the same weights, embeddings within
 2e-3 abs / 1e-3 rel; the verification protocol on both stacks' embeddings;
 the HTTP server; import hygiene; no silent CPU fallback."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import io
 import json
 import subprocess

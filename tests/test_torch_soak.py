@@ -3,6 +3,7 @@
 byte for byte crfr's; a tiny soak on the CPU prints crfr's keys, with the
 device numbers null (no card, no copy)."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import json
 
 import pytest

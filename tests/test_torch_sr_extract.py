@@ -11,6 +11,7 @@
   steps straight (synthetic batches and a ``.crfrpack``); the teacher
   options restore a ``train`` checkpoint."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import json
 
 import numpy as np

@@ -3,6 +3,7 @@ on the CPU, from the same seeded numpy inputs: ``landmark_heatmaps``,
 ``parsing_maps`` and ``prior_targets`` at 64 px within 1e-5; every GAN
 loss in both modes within 1e-6; ``psnr`` and ``ssim`` within 1e-4."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch

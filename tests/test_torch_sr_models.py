@@ -11,6 +11,7 @@ E[x²] − E[x]², torch in a two-pass form, and the two part by ~2e-5
 relative in float32. And the port's own init, at which G equals bicubic
 upsampling."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ with the perceptual term (weight 1).
   step matches within the train tests' tolerance (with Adam's sign flips
   bounded as in tests/test_torch_sr_train.py)."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch

@@ -18,6 +18,7 @@ Then the port alone: its checkpoint round trip (bit for bit, and the next
 step equal), the meta record's checks with crfr's texts, an EMA seeded from
 G when a state has none, the logged PSNR/SSIM, and its refusals."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch

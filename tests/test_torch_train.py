@@ -7,6 +7,7 @@ loss and gradient norm per step within 1e-4 relative; parameters and BN
 statistics after them within rtol 2e-4 / atol 2e-5 (the reference's own
 tolerance, tests/test_train.py:188-190)."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch

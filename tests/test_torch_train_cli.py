@@ -6,6 +6,7 @@ writes at each ``eval_every_steps`` what ``eval-bin --ckpt`` reads on that
 step's checkpoint (a command held against crfr's in
 test_torch_eval_cli.py); what is not ported raises."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import json
 import os
 import subprocess

@@ -4,6 +4,7 @@ feed's resume state, checkpoints with a bitwise next step, the
 degradation table and ``random_degrade``, the metrics writer, and the
 learning bar of tests/test_train.py:38-54."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import json
 import sys
 

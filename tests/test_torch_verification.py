@@ -3,6 +3,7 @@ distances: fold accuracies and best thresholds identical, TAR@FAR within
 1e-6, EER equal. Includes distances on a coarse grid, which gives long flat
 plateaus in the train FAR curve and ties in train accuracy."""
 
+import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import numpy as np
 import pytest
 import torch
