@@ -24,6 +24,11 @@ Phases, each printing one JSON line (with ``elapsed_s``, the seconds
 since the script started):
 
 1. device: the card, its power limit (nvidia-smi), and the kernel build time;
+1b. first_launch: the ragged forms of kernel 2 (a photo's pyramid, a
+   stage's crops) launched for the first time in a child process under a
+   300 s limit, small, against their plain versions and the launches of
+   their own; a kernel that hangs fails this phase by name (the child
+   starts before the build and waits for the library);
 2. kernels: every CUDA kernel of the port, built from the sources in this
    checkout, held against its plain PyTorch version at the main paths'
    shapes, and timed beside its bound, the plain version and one library
@@ -40,7 +45,13 @@ since the script started):
    shapes (``photo_cases``: every pyramid level of a 640×480 and a
    1280×720 uint8 photo at min_face 20, a 400 px box cropped to 24 and 48
    px, float32 out; each labelled with the plan it took, shorter bands or
-   the two-pass plan). The main case and the
+   the two-pass plan). The ragged forms are entries of their own: each
+   photo's pyramid in one launch and 223 boxes of the 640×480 photo (some
+   outside it, one with no area) cut to 24 px (timed) and 48 px in one
+   launch, held against the plain versions (1e-4), float64 (2e-3) and, bit
+   for bit, the launches of their own; timed beside the bound, the plain
+   version, the per-level launches' summed ms (the per-crop path's device
+   time) and the summed per-level (per-crop) einsums. The main case and the
    160×140 resize are also timed at several band heights (``ms_by_rows``) and
    with a cold L2 (``cold_ms``); both entries carry the launch plan
    (``fused_preprocess.resample_info``); every band height must equal the
@@ -220,7 +231,8 @@ since the script started):
    seconds;
 17. detect: ``train_mtcnn_synthetic`` on the card at crfr's slow test's
    settings (min_face 40, thresholds 0.6, 150 steps of 6 scenes, seed 0;
-   losses finite, kernel 2 once a crop, counted from 0 just before), then
+   losses finite, the crop form once a net and scene and no other launch,
+   counted from 0 just before), then
    six fresh 160² scenes (``default_rng(10**6)``): hits ≥ 4 and mean
    landmark error < 0.12 of the side (crfr's bounds); the detections of
    the card (``strict_fp32``) equal to the same cascade's on CPU tensors
@@ -228,9 +240,11 @@ since the script started):
    difference is allowed only where a candidate lies within 1e-3 of a
    threshold, and is then named in ``near_threshold``); composite photos
    of 640×480 (12 scenes) and 1280×720 (32 scenes): kernel-2 launches of
-   one ``detect`` counted from 0 just before, hits, and ms by stage
-   (pyramid + PNet, the host's decode and NMS, the R-net stage, the O-net
-   stage);
+   one ``detect`` counted from 0 just before (exactly one pyramid and two
+   crop launches), hits, ms by stage (pyramid + PNet, the host's decode
+   and NMS, the R-net stage, the O-net stage), and the R-net stage's crops
+   timed alone against the per-crop path; ``--only photo`` runs phases 1b,
+   the photo cases and this one;
 18. recognize: ``FaceRecognizer`` with the trained cascade, ir_18 float32:
    cosine > 0.8 between the detected-landmark crop and the GT-landmark
    crop (crfr's bound); IR-50 bf16 at full width on the 640×480 photo,
@@ -350,6 +364,8 @@ PEAK_INT8_OPS = 1979e12          # H100 SXM int8 tensor cores, dense
 B, S, LOW = 256, 112, 16
 TRAIN_B, LOWS = 512, (8, 112)          # casia_arcface: batch 512, degrade_min..degrade_max
 LOWS_NAME = "fused_degrade_normalize (a low per image)"
+PYRAMID_NAME, CROP_NAME = "fused_pyramid_normalize", "fused_crop_resize_normalize"
+NO_PHOTO = {PYRAMID_NAME: 0, CROP_NAME: 0}     # the ragged forms, off the detector's paths
 BANK_M, BANK_D, BANK_K = 1 << 20, 512, 10
 SR_SCALE, SR_B = 8, 256                # the SR phase's batch: the largest power of two
                                        # under ~60 GB (~0.21 GB an image, PERF.md §4)
@@ -368,15 +384,16 @@ def emit(obj) -> None:
 SPIN_CYCLES_PER_CALL = 400_000   # ~0.2 ms of a spin kernel per call to enqueue
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, spin: int = SPIN_CYCLES_PER_CALL) -> float:
     """Mean device time of one call over ``iters`` back-to-back calls. A
-    spin kernel ahead of them holds the device while the host enqueues the
-    calls, so the host's own time per call does not pace them."""
+    spin kernel ahead of them (``spin`` cycles a call) holds the device while
+    the host enqueues the calls, so the host's own time per call does not
+    pace them."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(SPIN_CYCLES_PER_CALL * iters)
+    torch.cuda._sleep(spin * iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -621,7 +638,7 @@ def kernel_case(fp, which: str, x: torch.Tensor, arg, mode: str, out_dtype: torc
         out_bytes = got.numel() * got.element_size()
         bms, by = bound(in_bytes, out_bytes, flops)
         case.update(
-            ms=cuda_ms(call), host_us=host_us(call),
+            ms=cuda_ms(call, spin=CROP_SPIN), host_us=host_us(call),
             plain_ms=cuda_ms(lambda: plain(x, arg, mode, out_dtype, **kw), iters=iters),
             library_ms=cuda_ms(library, iters=iters), library_call=library_call,
             bound_ms=bms, bound_by=by, flops=flops, bytes=in_bytes + out_bytes)
@@ -693,7 +710,8 @@ def phase_kernels(fp) -> list[dict]:
                           f32_out, True),
               kernel_case(fp, "fused_resize_normalize", odd, (S, 96), "pil", bf16, False),
               kernel_case(fp, "fused_resize_normalize", odd, (S, 96), "pil", f32_out, False)]
-    resize += photo_cases(fp, g)
+    photo, ragged = photo_cases(fp, g)
+    resize += photo
     plan_keys = ("registers", "spill_bytes", "smem_bytes", "ctas", "rows")
     return [
         {"name": "fused_degrade_normalize", "route": "cuda",
@@ -706,29 +724,178 @@ def phase_kernels(fp) -> list[dict]:
          "replaces": "crfr/ops/fused_pallas.py:93", "on_main_path": True,
          "cases": resize, **_headline(resize[0]),
          **{k: resize[0]["plan"][k] for k in plan_keys}},
+        *ragged,
     ]
 
 
 PHOTOS = ((480, 640), (720, 1280))      # (H, W) of the detector's photo cases
 PHOTO_MIN_FACE = 20                     # MTCNN's default: the deepest pyramid
 BOX = 400                               # a large face box's side, cropped to 24 and 48 px
+CROP_BOXES = 223                        # the R-net stage's crops of the 640×480 composite
+OLD_PATH_SPIN = 80_000_000              # ~40 ms of spin a call: the host's per-crop loop
+                                        # enqueues behind it, so it does not pace the timing
+CROP_SPIN = 4_000_000                   # ~2 ms a call: the crop form's host work (~0.5-1.2
+                                        # ms a call) enqueues behind it
 
 
-def photo_cases(fp, g) -> list[dict]:
+def old_crops(fp, img: torch.Tensor, boxes: np.ndarray, size: int,
+              out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The crops as a launch a crop made them before the crop form: a fill,
+    a copy of each box into a zero-padded crop where it leaves the image, and
+    one ``fused_resize_normalize`` launch a crop."""
+    out = torch.full((len(boxes), size, size, img.shape[2]), -127.5 / 128.0, dtype=out_dtype,
+                     device=img.device)
+    for i, (x1, y1, x2, y2) in enumerate(boxes.tolist()):
+        if x2 > x1 and y2 > y1:
+            crop = fp.padded_crop(img, x1, y1, x2, y2).contiguous()[None]
+            out[i] = fp.fused_resize_normalize(crop, (size, size), "pil", out_dtype)[0]
+    return out
+
+
+def _ragged_check(name: str, got: list, want: list, exact: list, old: list) -> tuple[float, float]:
+    """Each output of a ragged form against its plain version (1e-4), the
+    float64 product (2e-3), and the launch of its own (bit for bit)."""
+    err = max((g - wn).abs().max().item() for g, wn in zip(got, want))
+    err64 = max((g.double() - e).abs().max().item() for g, e in zip(got, exact))
+    if not (err <= 1e-4 and err64 <= 2e-3):
+        raise AssertionError(f"{name}: max_abs_err {err} (tol 1e-4), vs float64 {err64} "
+                             f"(tol 2e-3)")
+    differ = [i for i, (g, o) in enumerate(zip(got, old)) if not torch.equal(g, o)]
+    if differ:
+        raise AssertionError(f"{name}: outputs {differ[:10]} differ from their own launches")
+    return err, err64
+
+
+def pyramid_case(fp, x: torch.Tensor, sizes: list, levels: list[dict]) -> dict:
+    """The pyramid form on the photo ``x``: every level in one launch,
+    against its plain version, float64 and the per-level launches; timed
+    beside its bound, its plain version, the per-level launches (``levels``,
+    their cases) and the per-level einsums."""
+    _, h, w, c = x.shape
+    call = lambda: fp.fused_pyramid_normalize(x, sizes, "pil", torch.float32)  # noqa: E731
+    plain = lambda: fp.fused_pyramid_normalize_reference(x, sizes, "pil", torch.float32)  # noqa: E731
+    got = call()
+    offsets = [g.data_ptr() - got[0].data_ptr() for g in got]
+    keys = [fp.operator_key(h, w, tuple(hw), "pil") for hw in sizes]
+    exact = []
+    for key in keys:
+        wr, wc = fp._operators(key, x.device)
+        e = torch.einsum("oi,bijc,pj->bopc", wr.double(), x.double(), wc.double())
+        exact.append((e - 127.5) / 128.0)
+    old = [fp.fused_resize_normalize(x, tuple(hw), "pil", torch.float32) for hw in sizes]
+    err, err64 = _ragged_check(f"{PYRAMID_NAME} {w}x{h}", got, plain(), exact, old)
+    if not all(g.is_contiguous() and g.shape == (1, *hw, c) for g, hw in zip(got, sizes)):
+        raise AssertionError(f"{PYRAMID_NAME}: bad levels {[tuple(g.shape) for g in got]}")
+    flops = sum(needed_flops("fused_resize_normalize", 1, c, h, w, tuple(hw), "pil")
+                for hw in sizes)
+    in_bytes = x.numel() * x.element_size() + operator_bytes(fp, keys)
+    out_bytes = sum(g.numel() * 4 for g in got)
+    bms, by = bound(in_bytes, out_bytes, flops)
+    plan = fp.pyramid_plan(h, w, c, x.element_size(), tuple(map(tuple, sizes)), "pil")
+    return {"case": f"{w}x{h} pyramid, {len(sizes)} levels in one launch",
+            "shape": [1, h, w, c], "levels": [list(hw) for hw in sizes], "in": "uint8",
+            "out": "float32", "max_abs_err": err, "tolerance": 1e-4,
+            "max_abs_err_vs_f64": err64, "equals_per_level_launches": True,
+            "sums_split_levels": [], "level_offsets": offsets,
+            "ms": cuda_ms(call), "host_us": host_us(call),
+            "plain_ms": cuda_ms(plain, iters=5),
+            "per_level_sum_ms": sum(c["ms"] for c in levels),
+            "per_level_ms": [c["ms"] for c in levels],
+            "library_ms": sum(c["library_ms"] for c in levels),
+            "library_call": "the sum of one torch.einsum('oi,bijc,pj->bopc', Wr, x.float(), "
+                            "Wc) a level, each timed alone: no one PyTorch call makes a pyramid",
+            "bound_ms": bms, "bound_by": by, "flops": flops, "bytes": in_bytes + out_bytes,
+            "plan": {"tiles": len(plan["tiles"]), "tile_shapes": plan["shapes"],
+                     "smem_bytes": plan["smem"], **fp.ragged_info(x.dtype, torch.float32)}}
+
+
+def crop_case(fp, img: torch.Tensor, boxes: np.ndarray, size: int, timed: bool) -> dict:
+    """The crop form on ``img``: every box in one launch, against its plain
+    version, float64 and the per-crop launches of ``old_crops``; timed
+    beside its bound, its plain version, the per-crop path and the
+    per-crop einsums when ``timed``."""
+    h, w, c = img.shape
+    call = lambda: fp.fused_crop_resize_normalize(img, boxes, size, "pil", torch.float32)  # noqa: E731
+    plain = lambda: fp.fused_crop_resize_normalize_reference(img, boxes, size, "pil",  # noqa: E731
+                                                            torch.float32)
+    got = call()
+    cw, ch = boxes[:, 2] - boxes[:, 0], boxes[:, 3] - boxes[:, 1]
+    ok = (cw > 0) & (ch > 0)
+    pad = int(max(0, -boxes[:, :2].min(), (boxes[:, 2] - w).max(), (boxes[:, 3] - h).max()))
+    big = torch.zeros((h + 2 * pad, w + 2 * pad, c), dtype=torch.float64, device=img.device)
+    big[pad:pad + h, pad:pad + w] = img.double()
+    exact, einsums = [], []
+    for (x1, y1, x2, y2), good in zip(boxes.tolist(), ok):
+        if not good:
+            exact.append(torch.full((size, size, c), -127.5 / 128.0, dtype=torch.float64,
+                                    device=img.device))
+            continue
+        wr, wc = fp._operators(fp.operator_key(y2 - y1, x2 - x1, (size, size), "pil"),
+                               img.device)
+        crop = big[y1 + pad:y2 + pad, x1 + pad:x2 + pad]
+        exact.append((torch.einsum("oi,ijc,pj->opc", wr.double(), crop, wc.double()) - 127.5)
+                     / 128.0)
+        cf = crop.float()
+        einsums.append(lambda wr=wr, wc=wc, cf=cf: torch.einsum("oi,ijc,pj->opc", wr, cf, wc))
+    err, err64 = _ragged_check(f"{CROP_NAME} {size} px", list(got), list(plain()), exact,
+                               list(old_crops(fp, img, boxes, size)))
+    case = {"case": f"{len(boxes)} boxes of a {w}x{h} photo -> {size} px in one launch",
+            "shape": [h, w, c], "boxes": len(boxes), "size": size,
+            "outside": int(((boxes[:, 0] < 0) | (boxes[:, 1] < 0) | (boxes[:, 2] > w)
+                            | (boxes[:, 3] > h)).sum()), "no_area": int((~ok).sum()),
+            "in": "uint8", "out": "float32", "max_abs_err": err, "tolerance": 1e-4,
+            "max_abs_err_vs_f64": err64, "equals_per_crop_launches": True,
+            "plan": {**fp.crop_plan(ch[ok], cw[ok], size, c, 1, "pil"),
+                     **fp.ragged_info(img.dtype, torch.float32, crops=True)}}
+    if timed:
+        sides = {int(v) for v in np.concatenate([cw[ok], ch[ok]])}
+        read = np.zeros((h, w), bool)              # the photo's pixels some box covers
+        for x1, y1, x2, y2 in boxes[ok].tolist():
+            read[max(y1, 0):max(y2, 0), max(x1, 0):max(x2, 0)] = True
+        in_bytes = (int(read.sum()) * c * img.element_size() + boxes.nbytes
+                    + sum(s.nbytes + t.nbytes for s, t in (fp.band_table(v, size)
+                                                           for v in sides)))
+        flops = sum(needed_flops("fused_resize_normalize", 1, c, int(y2 - y1), int(x2 - x1),
+                                 (size, size), "pil") for x1, y1, x2, y2 in boxes[ok])
+        bms, by = bound(in_bytes, got.numel() * 4, flops)
+        case.update(
+            ms=cuda_ms(call, spin=CROP_SPIN), host_us=host_us(call),
+            plain_ms=cuda_ms(plain, iters=2, warmup=1, spin=OLD_PATH_SPIN),
+            per_crop_sum_ms=cuda_ms(lambda: old_crops(fp, img, boxes, size), iters=2,
+                                    warmup=1, spin=OLD_PATH_SPIN),
+            per_crop_path="a fill, a zero-padded copy where the box leaves the photo, one "
+                          "fused_resize_normalize launch a crop: the device time of the loop",
+            library_ms=cuda_ms(lambda: [f() for f in einsums], iters=2, warmup=1,
+                               spin=OLD_PATH_SPIN),
+            library_call="the sum of one torch.einsum('oi,ijc,pj->opc', Wr, crop.float(), Wc) "
+                         "a crop with area (the crops cut beforehand): no one PyTorch call "
+                         "crops and resizes",
+            bound_ms=bms, bound_by=by, flops=flops, bytes=in_bytes + got.numel() * 4)
+    return case
+
+
+def photo_cases(fp, g) -> tuple[list[dict], list[dict]]:
     """Kernel 2 at the detector's shapes, uint8 → float32 as ``MTCNN.detect``
     calls it: every pyramid level of a 640×480 and a 1280×720 photo at
-    min_face 20, and a 400 px box's R- and O-net crops; each timed and
-    labelled with its plan (``resample_info``: bands of how many rows, or
-    the two-pass plan)."""
+    min_face 20 launched alone, and a 400 px box's R- and O-net crops, each
+    timed and labelled with its plan (``resample_info``: bands of how many
+    rows, or the two-pass plan); then the two ragged forms' entries: each
+    photo's pyramid in one launch, and 223 boxes of the 640×480 photo
+    (some outside it) cut to 24 px (timed) and 48 px in one launch each."""
+    from crfr_torch.bench.ragged_levels import photo_boxes
     from crfr_torch.models.mtcnn import MTCNN
 
     levels = MTCNN(min_face=PHOTO_MIN_FACE, device="cpu")
-    cases = []
+    cases, pyramids = [], []
     for h, w in PHOTOS:
         x = torch.randint(0, 256, (1, h, w, 3), generator=g, device="cuda", dtype=torch.uint8)
-        for i, (_, hw) in enumerate(levels.pyramid_sizes(h, w)):
+        sizes = [hw for _, hw in levels.pyramid_sizes(h, w)]
+        per = []
+        for i, hw in enumerate(sizes):
             c = kernel_case(fp, "fused_resize_normalize", x, hw, "pil", torch.float32, True)
-            cases.append({"case": f"{w}x{h} pyramid level {i}", **c})
+            per.append({"case": f"{w}x{h} pyramid level {i}", **c})
+        cases += per
+        pyramids.append(pyramid_case(fp, x, sizes, per))
     box = torch.randint(0, 256, (1, BOX, BOX, 3), generator=g, device="cuda", dtype=torch.uint8)
     for side, net in ((24, "R-net"), (48, "O-net")):
         c = kernel_case(fp, "fused_resize_normalize", box, (side, side), "pil", torch.float32,
@@ -737,7 +904,21 @@ def photo_cases(fp, g) -> list[dict]:
     for c in cases:
         c["plan_taken"] = (c["plan"]["plan"] if c["plan"]["plan"] == "two_pass"
                            else f"bands of {c['plan']['rows']} rows")
-    return cases
+    h, w = PHOTOS[0]
+    img = torch.randint(0, 256, (h, w, 3), generator=g, device="cuda", dtype=torch.uint8)
+    boxes = photo_boxes(CROP_BOXES, h, w)
+    crops = [crop_case(fp, img, boxes, 24, True), crop_case(fp, img, boxes, 48, False),
+             crop_case(fp, img.float(), boxes[:40], 24, False)]
+    crops[-1].update(case=f"40 boxes of a float32 {w}x{h} photo -> 24 px", **{"in": "float32"})
+    src = "crfr_torch/ops/csrc/fused_preprocess.cu"
+    replaces = "crfr/ops/fused_pallas.py:93"
+    return cases, [
+        {"name": PYRAMID_NAME, "route": "cuda", "source": src, "replaces": replaces,
+         "computes": "crfr/models/mtcnn.py:294 (a native bicubic resize a level)",
+         "on_main_path": True, "cases": pyramids, **_headline(pyramids[0])},
+        {"name": CROP_NAME, "route": "cuda", "source": src, "replaces": replaces,
+         "computes": "crfr/models/mtcnn.py:206-228 (crop_resize)", "on_main_path": True,
+         "cases": crops, **_headline(crops[0])}]
 
 
 def tilemax_case(bs, pq, q, sc, valid, timed: bool) -> dict:
@@ -809,13 +990,24 @@ def _headline(case: dict) -> dict:
 def _counts(fp) -> dict:
     return {"fused_degrade_normalize": fp.fused_degrade_normalize.launches,
             LOWS_NAME: fp.fused_degrade_normalize.lows_launches,
-            "fused_resize_normalize": fp.fused_resize_normalize.launches}
+            "fused_resize_normalize": fp.fused_resize_normalize.launches,
+            PYRAMID_NAME: fp.fused_resize_normalize.pyramid_launches,
+            CROP_NAME: fp.fused_resize_normalize.crop_launches}
+
+
+def _only(name: str) -> dict:
+    """The launch counts of a path that launches kernel ``name`` once and no
+    other."""
+    return {**{k: 0 for k in (*NO_PHOTO, "fused_degrade_normalize", LOWS_NAME,
+                              "fused_resize_normalize")}, name: 1}
 
 
 def _zero_counts(fp) -> None:
     fp.fused_degrade_normalize.launches = 0
     fp.fused_degrade_normalize.lows_launches = 0
     fp.fused_resize_normalize.launches = 0
+    fp.fused_resize_normalize.pyramid_launches = 0
+    fp.fused_resize_normalize.crop_launches = 0
 
 
 def phase_embed(fp) -> tuple[dict, dict]:
@@ -1127,7 +1319,7 @@ def phase_train(fp) -> dict:
     loss, gnorm = m["loss"].item(), m["grad_norm"].item()
     changed = sum(not torch.equal(before[k], v) for k, v in tr.model.named_parameters())
     w = tr.model.head.weight
-    if launches != {"fused_degrade_normalize": 0, LOWS_NAME: 1, "fused_resize_normalize": 0}:
+    if launches != {"fused_degrade_normalize": 0, LOWS_NAME: 1, "fused_resize_normalize": 0, **NO_PHOTO}:
         raise AssertionError(f"train: one step launched {launches}, want one degrade with a "
                              f"low per image")
     if not (np.isfinite(loss) and np.isfinite(gnorm)):
@@ -1286,7 +1478,7 @@ def phase_train_eval(fp) -> dict:
         eval_b = min(get_config("casia_arcface").eval.batch_size, 600)
         per_eval = 2 * -(-600 // eval_b)                     # both sides of the pairs
         want = {"fused_degrade_normalize": 2 * per_eval, LOWS_NAME: 6,
-                "fused_resize_normalize": 0}
+                "fused_resize_normalize": 0, **NO_PHOTO}
         if final != {"final_step": 6} or sorted(evals) != [3, 6] or launches != want:
             raise AssertionError(f"train_eval: {final}, eval steps {sorted(evals)}, "
                                  f"launches {launches}, want {want}")
@@ -1375,7 +1567,7 @@ def phase_soak(fp) -> dict:
     # 120 soak steps, the step-only ceiling's 1 + 30, and the traced windows'
     # 2 × (3 + 10 + 10); one eval: both sides of 600 pairs at batch 256
     want = {"fused_degrade_normalize": 2 * -(-600 // 256), LOWS_NAME: 120 + 31 + 46,
-            "fused_resize_normalize": 0}
+            "fused_resize_normalize": 0, **NO_PHOTO}
     if launches != want or len(out["eval_accuracy"]) != 1 or not np.isfinite(out["final_loss"]):
         raise AssertionError(f"soak: launches {launches}, want {want}; {out}")
     out.pop("workdir")
@@ -1490,7 +1682,7 @@ def phase_roofline(embed: dict) -> dict:
                       **{k: tr[k] for k in keys}}}
 
 
-SR_ONE_RESIZE = {"fused_degrade_normalize": 0, LOWS_NAME: 0, "fused_resize_normalize": 1}
+SR_ONE_RESIZE = {"fused_degrade_normalize": 0, LOWS_NAME: 0, "fused_resize_normalize": 1, **NO_PHOTO}
 
 
 def _nested_equal(a, b) -> bool:
@@ -1834,7 +2026,7 @@ def phase_distill(fp) -> dict:
         metrics = {k: v.item() for k, v in m.items()}
         changed = sum(not torch.equal(before[k], v) for k, v in st.model.named_parameters())
         del before
-        want = ({"fused_degrade_normalize": 0, LOWS_NAME: 1, "fused_resize_normalize": 0}
+        want = ({"fused_degrade_normalize": 0, LOWS_NAME: 1, "fused_resize_normalize": 0, **NO_PHOTO}
                 if path == "bicubic" else SR_ONE_RESIZE)
         if launches != want:
             raise AssertionError(f"distill {path}: one step launched {launches}, want {want}")
@@ -2017,7 +2209,7 @@ def phase_int8_embed(fp) -> dict:
     if tuple(emb8.shape) != (B, 512) or emb8.dtype != torch.float32 \
             or not torch.isfinite(emb8).all():
         raise AssertionError(f"int8_embed: bad output {tuple(emb8.shape)} {emb8.dtype}")
-    want = {"fused_degrade_normalize": 1, LOWS_NAME: 0, "fused_resize_normalize": 0}
+    want = {"fused_degrade_normalize": 1, LOWS_NAME: 0, "fused_resize_normalize": 0, **NO_PHOTO}
     if launches != want:
         raise AssertionError(f"int8_embed: one batch launched {launches}, want {want}")
     q = embed8.model
@@ -2108,7 +2300,7 @@ def phase_bench(fp, embed: dict, int8_embed: dict) -> dict:
         run_throughput(batch=B, steps=2, repeats=1, int8=int8, device="cuda")
         torch.cuda.synchronize()
         launches = _counts(fp)
-        want = {"fused_degrade_normalize": 4, LOWS_NAME: 0, "fused_resize_normalize": 0}
+        want = {"fused_degrade_normalize": 4, LOWS_NAME: 0, "fused_resize_normalize": 0, **NO_PHOTO}
         if launches != want:         # batches: the first, one re-warm, two timed
             raise AssertionError(f"bench {name}: four batches launched {launches}, want {want}")
         out[name] = {"line": line, "in_process_ms_per_batch": in_process,
@@ -2171,7 +2363,7 @@ def ms1m_scale_run(fp) -> dict:
     # two run_train_throughput runs (a first step, three windows) and
     # the repeated batch's first step and MS1M_STEPS more
     steps = 2 * (1 + 3 * MS1M_STEPS) + 1 + MS1M_STEPS
-    want = {"fused_degrade_normalize": 0, LOWS_NAME: steps, "fused_resize_normalize": 0}
+    want = {"fused_degrade_normalize": 0, LOWS_NAME: steps, "fused_resize_normalize": 0, **NO_PHOTO}
     if (rc != 0 or set(scale) != MS1M_SCALE_KEYS or launches != want
             or not np.isfinite([scale["loss_first"], scale["loss_after_steps"]]).all()
             or not scale["loss_after_steps"] < scale["loss_first"]
@@ -2317,7 +2509,7 @@ def phase_headline(fp) -> dict:
     calls. The ordering is reported, not asserted: the steps are cut."""
     from crfr_torch.experiments import headline as hl
 
-    int8_sr = {"calls": 0, "fused_resize_normalize": 0}
+    int8_sr = {"calls": 0, "fused_resize_normalize": 0, **NO_PHOTO}
     twins = hl._int8_probe_embedders
 
     def counted(*a, **k):
@@ -2497,7 +2689,7 @@ def phase_detect(fp) -> tuple[dict, dict]:
     detections from the cascade on CPU tensors, and composite photos of
     640×480 and 1280×720: kernel-2 launches a photo, ms by stage, hits."""
     from crfr_torch.device import strict_fp32
-    from crfr_torch.models.mtcnn import MTCNN
+    from crfr_torch.models.mtcnn import MTCNN, crop_resize, photo_tensor
     from crfr_torch.train.mtcnn_train import iou, render_scene, train_mtcnn_synthetic
 
     mt = MTCNN(min_face=DETECT_MIN_FACE, thresholds=DETECT_THRESHOLDS, seed=0)
@@ -2509,11 +2701,10 @@ def phase_detect(fp) -> tuple[dict, dict]:
     train_launches = _counts(fp)
     if not all(np.isfinite(v) for v in losses.values()):
         raise AssertionError(f"detect: training losses {losses}")
-    want_train = DETECT_STEPS * DETECT_SCENES * 3 * 6      # three nets, 6 crops a scene each
-    if train_launches["fused_resize_normalize"] != want_train:
-        raise AssertionError(f"detect: training launched kernel 2 "
-                             f"{train_launches['fused_resize_normalize']} times, "
-                             f"want {want_train}")
+    # three nets a scene, each scene's crops in one launch of the crop form
+    want_train = {**_only(CROP_NAME), CROP_NAME: DETECT_STEPS * DETECT_SCENES * 3}
+    if train_launches != want_train:
+        raise AssertionError(f"detect: training launched {train_launches}, want {want_train}")
 
     test_rng = np.random.default_rng(10**6)
     scenes = [render_scene(test_rng, 160) for _ in range(DETECT_SCENES)]
@@ -2546,12 +2737,22 @@ def phase_detect(fp) -> tuple[dict, dict]:
         det = mt.detect(img)
         torch.cuda.synchronize()
         launches = _counts(fp)
+        want = {**_only(PYRAMID_NAME), CROP_NAME: 2}       # the pyramid, R-net, O-net
+        if launches != want:
+            raise AssertionError(f"detect: {name} launched {launches}, want {want}")
         with strict_fp32():
             _card_vs_cpu(mt_cpu, name, img, mt.detect(img), near)
         runs = [_timed_detect(mt, img) for _ in range(3)]
+        x = photo_tensor(img, mt.device)
+        b1 = mt.stage1(x)                   # the R-net stage's boxes
+        crops = lambda: crop_resize(x, b1, 24)  # noqa: E731
+        rnet_crops = {
+            "boxes": len(b1), "ms": cuda_ms(crops, spin=CROP_SPIN), "host_us": host_us(crops),
+            "per_crop_path_ms": cuda_ms(lambda: old_crops(fp, x, b1[:, :4].astype(int), 24),
+                                        iters=2, warmup=1, spin=OLD_PATH_SPIN)}
         photos[name] = {"faces": len(boxes), "detections": len(det.boxes),
                         "hits": _hits(det, boxes), "launches": launches,
-                        "levels": len(mt.pyramid_sizes(h, w)),
+                        "rnet_crops": rnet_crops, "levels": len(mt.pyramid_sizes(h, w)),
                         "ms": min(runs, key=lambda r: r["detect_ms"]), "ms_runs": runs,
                         "image": img, "landmarks": lmks, "boxes": boxes}
     out = {"phase": "detect", "min_face": DETECT_MIN_FACE, "thresholds": DETECT_THRESHOLDS,
@@ -2801,7 +3002,7 @@ def phase_export(fp, tmp: str) -> tuple[dict, dict]:
     tr = Trainer(cfg, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(30)
     x = torch.randint(0, 256, (B, S, S, 3), generator=g, device="cuda", dtype=torch.uint8)
-    one_launch = {"fused_degrade_normalize": 1, LOWS_NAME: 0, "fused_resize_normalize": 0}
+    one_launch = {"fused_degrade_normalize": 1, LOWS_NAME: 0, "fused_resize_normalize": 0, **NO_PHOTO}
 
     def export(name, **kw):
         path = f"{tmp}/{name}.crfrt"
@@ -3681,9 +3882,9 @@ def phase_distributed(gallery_ref: dict, cli_started: dict) -> dict:
             per_rank = [o[name] for o in ranks]
             for r, o in enumerate(per_rank):
                 want = {"fused_degrade_normalize": 0, LOWS_NAME: DIST_BF16_STEPS,
-                        "fused_resize_normalize": 0}
+                        "fused_resize_normalize": 0, **NO_PHOTO}
                 if o["launches"] != want or o["extract_launches"] != {
-                        "fused_degrade_normalize": 1, LOWS_NAME: 0, "fused_resize_normalize": 0}:
+                        "fused_degrade_normalize": 1, LOWS_NAME: 0, "fused_resize_normalize": 0, **NO_PHOTO}:
                     raise AssertionError(f"distributed train {name}: rank {r} launched "
                                          f"{o['launches']} in {DIST_BF16_STEPS} steps and "
                                          f"{o['extract_launches']} in one split extract")
@@ -3713,12 +3914,76 @@ def phase_distributed(gallery_ref: dict, cli_started: dict) -> dict:
                          **{f"extract_{n}": t["extract_launches"] for n, t in train.items()}}}
 
 
+FIRST_LAUNCH_TIMEOUT = 300
+
+
+def first_launch_main() -> int:
+    """The ragged forms' first launches on the card, small and checked: the
+    pyramid of a 160×120 photo and 20 boxes of it (some outside it, one
+    with no area), uint8 and float32 in, float32 and bf16 out, against the
+    plain versions and the launches of their own (bit for bit). Started
+    beside the parent's build: it waits for the library to appear."""
+    from crfr_torch.bench.ragged_levels import photo_boxes
+    from crfr_torch.ops import _build
+    from crfr_torch.ops import fused_preprocess as fp
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randint(0, 256, (1, 120, 160, 3), generator=g, device="cuda", dtype=torch.uint8)
+    sizes = [(72, 96), (51, 68), (36, 48), (12, 16), (14, 200)]
+    boxes = photo_boxes(20, 120, 160, seed=5)
+    while not _build.library_path().exists():    # the parent builds it; its limit bounds this
+        time.sleep(0.1)
+    errs = []
+    for xx in (x, x.float()):
+        for od, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            got = fp.fused_pyramid_normalize(xx, sizes, "pil", od)
+            want = fp.fused_pyramid_normalize_reference(xx, sizes, "pil", od)
+            old = [fp.fused_resize_normalize(xx, hw, "pil", od) for hw in sizes]
+            crops = fp.fused_crop_resize_normalize(xx[0], boxes, 24, "pil", od)
+            crops_want = fp.fused_crop_resize_normalize_reference(xx[0], boxes, 24, "pil", od)
+            torch.cuda.synchronize()
+            err = max((a.float() - b.float()).abs().max().item()
+                      for a, b in zip([*got, crops], [*want, crops_want]))
+            if err > tol or not all(torch.equal(a, b) for a, b in zip(got, old)):
+                raise AssertionError(f"first launch {xx.dtype} -> {od}: max_abs_err {err} "
+                                     f"(tol {tol}), per-level launches equal: "
+                                     f"{[torch.equal(a, b) for a, b in zip(got, old)]}")
+            if not torch.equal(crops, old_crops(fp, xx[0], boxes, 24, od)):
+                raise AssertionError(f"first launch {xx.dtype}: crops differ from the "
+                                     f"per-crop launches")
+            errs.append(err)
+    print(json.dumps({"max_abs_err": max(errs), "cases": len(errs)}), flush=True)
+    return 0
+
+
+def start_first_launch() -> Background:
+    """``first_launch_main`` in a child process under a time limit, started
+    before the build so that its start-up overlaps it."""
+    return children([sys.executable, str(Path(__file__).resolve()), "--first-launch"],
+                    env=_child_env(), timeout=FIRST_LAUNCH_TIMEOUT)
+
+
+def phase_first_launch(started: Background) -> dict:
+    """The first launches' child: a ragged kernel that hangs the card fails
+    this phase by name."""
+    r = started.result()[0]
+    if r.returncode != 0:
+        why = (f"killed after {FIRST_LAUNCH_TIMEOUT} s" if started.wall_s >= FIRST_LAUNCH_TIMEOUT
+               else f"exit {r.returncode}")
+        raise AssertionError(f"first_launch: the ragged forms' first launches ({why}): "
+                             f"{r.stderr[-3000:]}")
+    return {"phase": "first_launch", **json.loads(r.stdout.strip().splitlines()[-1]),
+            "wall_s": started.wall_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if sys.argv[1:2] == ["--rank"]:                  # a rank process of phase 24
         return rank_main(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--first-launch"]:          # phase 1b's child
+        return first_launch_main()
     only = sys.argv[2:3] if sys.argv[1:2] == ["--only"] else []
     from crfr_torch.ops import _build
     from crfr_torch.ops import bank_scan as bs
@@ -3729,6 +3994,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
+    first_launch = start_first_launch() if only in ([], ["photo"]) else None
     t0 = time.perf_counter()
     _build.load_library()
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
@@ -3739,6 +4005,12 @@ def main() -> int:
         emit(phase_gallery(bs))
         emit({**phase_distributed(GALLERY_REF, start_dist_cli()), "card": smi})
         return 0
+    if only == ["photo"]:               # the detector's kernels and phase 17
+        emit(phase_first_launch(first_launch))
+        photo, ragged = photo_cases(fp, torch.Generator(device="cuda").manual_seed(1))
+        emit({"phase": "kernels", "photo_cases": photo, "kernels": ragged, "card": smi})
+        emit({**phase_detect(fp)[0], "card": smi})
+        return 0
     if only == ["bench"]:               # phases 25-26, with the phases bench compares with
         embed, _ = phase_embed(fp)
         emit({**embed, "card": smi})
@@ -3748,6 +4020,7 @@ def main() -> int:
         fit = start_ms1m_fit()
         emit({**phase_ms1m(fit, ms1m_scale_run(fp)), "card": smi})
         return 0
+    emit(phase_first_launch(first_launch))
     kernels = phase_kernels(fp) + [phase_kernels_bank(bs), phase_kernels_lows(fp)]
     emit({"phase": "kernels", "cases": sum(len(k["cases"]) for k in kernels)})
     embed, state = phase_embed(fp)
@@ -3840,7 +4113,8 @@ def main() -> int:
              # per rank of the two-rank phase: one bank_tilemax a rank, one
              # kernel 1' a rank a step, one kernel 1 a rank a split extract
              **{f"distributed_{k}": v for k, v in distributed["launches"].items()}}
-    own = {"bank_tilemax": gallery, LOWS_NAME: train, "fused_resize_normalize": sr_train}
+    own = {"bank_tilemax": gallery, LOWS_NAME: train, "fused_resize_normalize": sr_train,
+           PYRAMID_NAME: detect, CROP_NAME: detect}
     for k in kernels:
         k["launches"] = own.get(k["name"], embed)["launches"][k["name"]]
         k["launches_by_path"] = {p: v[k["name"]] for p, v in paths.items() if k["name"] in v}

@@ -39,6 +39,7 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.crfr_resample_normalize.argtypes = [p, i, p, i, i, i, p, i, i, i, i, p]
+    lib.crfr_pyramid_normalize.argtypes = [p, i, p, i, i, i, i, p, p, i, i, i, i, p]
     lib.crfr_resample_phase_clock.argtypes = [p]
     lib.crfr_error_string.argtypes = [i]
     lib.crfr_error_string.restype = ctypes.c_char_p

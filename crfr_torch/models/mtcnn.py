@@ -8,16 +8,18 @@ before their first linear layer, as ``crfr`` flattens.
 
 ``MTCNN.detect`` moves the photo to the device once, uint8 when it is
 uint8 (the same sums as ``crfr``'s float32 path on integer values), and
-builds each pyramid level with one launch of the resize kernel
-(``fused_resize_normalize``: PIL bicubic, then (x − 127.5)/128, float32
-out), where ``crfr`` resizes on the host. Each R/O-net crop is cut from the
-photo on the device, zero-padded where the box leaves it, and resized by one
-launch of the same kernel (``crop_resize``). The irregular parts (box
-decode, NMS, pyramid bookkeeping, ``np.round``'s half-to-even and the
-``astype(int)`` truncation of the crop boxes) stay numpy on the host,
-copied from ``crfr``. ``crfr`` pads the R/O-net batches to a power of two
-for XLA's static shapes; the nets have no batch statistics, so the port
-runs each batch as it is.
+builds every pyramid level with one launch of the resize kernel's pyramid
+form (``fused_pyramid_normalize``: each level PIL bicubic from the photo,
+then (x − 127.5)/128, float32 out), where ``crfr`` resizes on the host. All
+the crops of the R-net stage, and then of the O-net stage, come from one
+launch of its crop form each (``crop_resize``: ``fused_crop_resize_normalize``
+cuts each box from the photo on the device, reads zeros where it leaves the
+photo, and resizes it), so a ``detect`` launches the kernel three times.
+The irregular parts (box decode, NMS, pyramid bookkeeping, ``np.round``'s
+half-to-even and the ``astype(int)`` truncation of the crop boxes) stay
+numpy on the host, copied from ``crfr``. ``crfr`` pads the R/O-net batches
+to a power of two for XLA's static shapes; the nets have no batch
+statistics, so the port runs each batch as it is.
 
 No pretrained weights exist offline: the nets start from weights drawn from
 ``seed`` (``train.mtcnn_train`` trains them on rendered faces), and
@@ -35,8 +37,7 @@ from torch import nn
 
 from crfr_torch.device import resolve_device
 from crfr_torch.models.irse import PReLU, init_weights
-from crfr_torch.ops.fused_preprocess import fused_resize_normalize
-from crfr_torch.ops.normalize import MEAN, STD
+from crfr_torch.ops.fused_preprocess import fused_crop_resize_normalize, fused_pyramid_normalize
 
 
 class _MaxPool(nn.Module):
@@ -213,27 +214,14 @@ def square_boxes(boxes: np.ndarray) -> np.ndarray:
 
 
 def crop_resize(img: torch.Tensor, boxes: np.ndarray, size: int) -> torch.Tensor:
-    """Crop ``boxes`` from ``img`` (H, W, C) uint8 or float32, zero-padded
-    where a box leaves the image, and bicubic-resize each to size² with
-    one launch of the resize kernel: (N, size, size, C) float32 normalized
-    pixels on ``img``'s device. A box with no area gives a crop of zeros
-    before normalization, as in ``crfr``."""
-    h, w, c = img.shape
-    out = torch.full((len(boxes), size, size, c), -MEAN / STD, dtype=torch.float32,
-                     device=img.device)
-    for i, (x1, y1, x2, y2) in enumerate(boxes[:, :4].astype(int)):
-        cw, ch = x2 - x1, y2 - y1
-        if cw <= 0 or ch <= 0:
-            continue
-        sx1, sy1, sx2, sy2 = max(x1, 0), max(y1, 0), min(x2, w), min(y2, h)
-        if (sx1, sy1, sx2, sy2) == (x1, y1, x2, y2):
-            crop = img[y1:y2, x1:x2].contiguous()
-        else:
-            crop = torch.zeros((ch, cw, c), dtype=img.dtype, device=img.device)
-            if sx2 > sx1 and sy2 > sy1:
-                crop[sy1 - y1:sy2 - y1, sx1 - x1:sx2 - x1] = img[sy1:sy2, sx1:sx2]
-        out[i] = fused_resize_normalize(crop[None], (size, size), "pil", torch.float32)[0]
-    return out
+    """Crop ``boxes`` (their ``astype(int)`` truncation, as ``crfr``) from
+    ``img`` (H, W, C) uint8 or float32, zero-padded where a box leaves the
+    image, and bicubic-resize each to size² with one launch of the crop form
+    of the resize kernel: (N, size, size, C) float32 normalized pixels on
+    ``img``'s device. A box with no area gives a crop of zeros before
+    normalization, as in ``crfr``."""
+    return fused_crop_resize_normalize(img, boxes[:, :4].astype(int), size, "pil",
+                                       torch.float32)
 
 
 def photo_tensor(img, device: torch.device) -> torch.Tensor:
@@ -295,10 +283,12 @@ class MTCNN(nn.Module):
     @torch.inference_mode()
     def pyramid(self, x: torch.Tensor) -> list[tuple[float, torch.Tensor, torch.Tensor]]:
         """Stage 1 on the device: (scale, prob, reg) of PNet at each level of
-        the photo ``x`` (H, W, C); one resize launch a level."""
+        the photo ``x`` (H, W, C); one launch of the pyramid form for every
+        level."""
+        sizes = self.pyramid_sizes(*x.shape[:2])
+        levels = fused_pyramid_normalize(x[None], [hw for _, hw in sizes], "pil", torch.float32)
         out = []
-        for s, (sh, sw) in self.pyramid_sizes(*x.shape[:2]):
-            scaled = fused_resize_normalize(x[None], (sh, sw), "pil", torch.float32)
+        for (s, _), scaled in zip(sizes, levels):
             prob, reg = self.pnet(scaled)
             out.append((s, prob[0], reg[0]))
         return out

@@ -52,6 +52,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.crfr_resize_two_pass.restype = i
     lib.crfr_resize_two_pass_info.argtypes = [i, i, i, i, p, p]
     lib.crfr_resize_two_pass_info.restype = i
+    lib.crfr_pyramid_normalize.argtypes = [p, i, p, i, i, i, i, p, p, i, i, i, i, p]
+    lib.crfr_pyramid_normalize.restype = i
+    lib.crfr_crop_resize_normalize.argtypes = [p, i, p, i, i, i, i, p, i, i, i, i, i, i, i, p]
+    lib.crfr_crop_resize_normalize.restype = i
+    lib.crfr_ragged_info.argtypes = [i, i, i, p]
+    lib.crfr_ragged_info.restype = i
     lib.crfr_bank_tilemax.argtypes = [p, p, p, p, p, i, i, i, i, p]
     lib.crfr_bank_tilemax.restype = i
     lib.crfr_bank_tilemax_tile.argtypes = []
@@ -89,17 +95,23 @@ def _compile_and_link(so: Path) -> None:
             f.unlink(missing_ok=True)
 
 
+def library_path() -> Path:
+    """Where this checkout's kernel library is built: named by a hash of the
+    sources and flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        digest.update(src.read_bytes())
+    return BUILD_DIR / f"libcrfr_torch_kernels_{digest.hexdigest()[:16]}.so"
+
+
 def load_library() -> ctypes.CDLL:
     """The compiled kernel library, built on first call in this process."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in SOURCES:
-            digest.update(src.read_bytes())
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = BUILD_DIR / f"libcrfr_torch_kernels_{digest.hexdigest()[:16]}.so"
+        so = library_path()
         if not so.exists():
             _compile_and_link(so)
         _lib = _declare(ctypes.CDLL(str(so)))

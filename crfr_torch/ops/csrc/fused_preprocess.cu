@@ -69,6 +69,33 @@
 // are the int form's, bit for bit. At B=512, 112², uint8 -> bf16 it must
 // move 57.8 MB, 0.017 ms at 3.35 TB/s: bound by bytes.
 //
+// The ragged forms, for a detector's photo (crfr_pyramid_normalize,
+// crfr_crop_resize_normalize). A pyramid is every level of one photo, each
+// resized from the photo itself (a level made from the one above would
+// change the numbers); a stage's crops are boxes of one photo, each a
+// window of it read as zero outside the photo. One launch takes them all:
+// a device table of crfr_windows gives each resized image's two factors,
+// origin and output offset, and each CTA takes one tile of one of them (a
+// pyramid: a table of crfr_tiles, (level, row band, column tile), the
+// costliest first; crops: a band of rows of one crop, from blockIdx). What
+// bounds a pyramid: at 640x480 uint8 -> f32, min_face 20, it must read the
+// photo once (0.92 MB) and write its ten levels once (2.68 MB), 1.07 us at
+// 3.35 TB/s, and through the banded factors it needs 86 MFLOP, 1.29 us at
+// the f32 FMA peak (1280x720: 10.8 MB, 3.22 us; 282 MFLOP, 4.20 us): bytes
+// and operations alike, a few microseconds. A launch a level left the deep
+// levels 1-14 CTAs, each walking ~200 taps. Here every level is cut into
+// tiles whose horizontal sums fit 32 KB of shared memory and whose
+// multiply-adds stay under 2^18, columns split first (no work done twice),
+// then rows: the deep levels take hundreds of CTAs. A tile stages the input
+// it reads a chunk of rows at a time, only its own columns, coalesced (a
+// warp a row, 8 loads a lane in flight), keeps its horizontal weights in
+// shared memory and runs (c) one output element a thread; the photo stays
+// in L2, so the tiles' overlapping reads come from there (PERF.md times
+// the passes: crfr_torch/bench/ragged_levels.py --phases). No
+// sum is split: each output's taps run in order, by the band plans' own
+// device functions, so every level and crop equals a launch of its own bit
+// for bit.
+//
 // Plain C interface, built with nvcc into a shared library and called
 // through ctypes (crfr_torch/ops/_build.py). The caller allocates `out` and
 // passes PyTorch's current stream; nothing here allocates or synchronises.
@@ -86,6 +113,21 @@ typedef struct {
   const float* taps;   // [n_taps][n_out] weights, zero-padded
   int n_in, n_out, n_taps;
 } crfr_band;
+
+// One resized image of a ragged launch: a pyramid level of the photo, or a
+// crop of it (the window of v.n_in x h.n_in pixels at (y0, x0), zero
+// outside the photo; v.n_in == 0 for a box with no area).
+typedef struct {
+  crfr_band v, h;      // the factors along H and along W
+  int y0, x0;
+  long long out;       // element offset of its first output
+} crfr_window;
+
+// A pyramid CTA's work: output rows [o0, o0 + n), columns [q0, q0 + m) of
+// window `window`.
+typedef struct {
+  int window, o0, n, q0, m;
+} crfr_tile;
 }
 
 namespace {
@@ -239,6 +281,36 @@ __device__ __forceinline__ void phase_clock(int k) {
 #else
 __device__ __forceinline__ void phase_clock(int) {}
 #endif
+
+// The ragged forms' tile, under CRFR_PHASE_CLOCK: thread 0 sums the time of
+// its chunks' staging ([CTA][2]) and horizontal passes ([CTA][3]) in ns;
+// phase_clock(0), (1), (4) mark the tile's start, its last chunk and its end.
+struct PassTimer {
+#ifdef CRFR_PHASE_CLOCK
+  unsigned long long t = 0, sum[2] = {0, 0};
+  __device__ __forceinline__ static unsigned long long now() {
+    unsigned long long v;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(v));
+    return v;
+  }
+  __device__ __forceinline__ void start() { t = now(); }
+  __device__ __forceinline__ void lap(int k) {
+    const unsigned long long v = now();
+    sum[k] += v - t;
+    t = v;
+  }
+  __device__ __forceinline__ void store() const {
+    if (threadIdx.x == 0 && crfr_phase_clock_buf != nullptr) {
+      crfr_phase_clock_buf[blockIdx.x * 8 + 2] = sum[0];
+      crfr_phase_clock_buf[blockIdx.x * 8 + 3] = sum[1];
+    }
+  }
+#else
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void lap(int) {}
+  __device__ __forceinline__ void store() const {}
+#endif
+};
 
 // ---- the passes --------------------------------------------------------------
 // Rows are NHWC rows, n_pixels*C contiguous elements, all in shared memory.
@@ -565,6 +637,153 @@ resize_cols_kernel(const float* __restrict__ tmp, Tout* __restrict__ out, const 
                                 out + (static_cast<size_t>(img) * p.OH + r0) * len);
 }
 
+// ---- the ragged forms: a photo's pyramid, a stage's crops -------------------
+
+constexpr int kStageLoads = 8;   // loads a thread keeps in flight while staging a tile
+
+struct Ragged {
+  const crfr_window* win;   // the resized images
+  const crfr_tile* tiles;   // the pyramid: one tile a CTA (crops: nullptr)
+  int H, W, C;              // the photo
+  int taps_off;             // bytes: where a tile's horizontal weights start in shared memory
+  int stage_off;            // bytes: where the staging area starts
+  int stage_bytes;          // its size
+  int size;                 // crops: the output side; a CTA's tile of rows x cols,
+  int rows, cols;           // bands x col_tiles tiles a crop
+  int bands, col_tiles;
+};
+
+// One tile of a resized image w: output rows [o0, o0 + n) and columns
+// [q0, q0 + m), written at `out` (the tile's first output; rows
+// w.h.n_out * C apart). The image is the window of the photo x of
+// w.v.n_in x w.h.n_in pixels at (w.y0, w.x0); with kPad, pixels outside the
+// photo read 0. The input rows the tile reads, [lo, lo + nl), are staged a
+// chunk at a time, only the columns its m outputs read (`pitch` elements
+// a row), a warp a row, coalesced; (c) runs on each chunk into
+// [nl][m*C] f32 at the start of shared memory, then (d) on those. The sums
+// are the band plans' own, in the same order: (c) as `horizontal` takes
+// each channel's taps, (d) by vertical_sum, so each output equals a
+// per-image launch's bit for bit.
+template <typename Tin, typename Tout, bool kPad>
+__device__ __forceinline__ void resize_tile(const Tin* __restrict__ x, const Ragged& p,
+                                            const crfr_window& w, int o0, int n, int q0, int m,
+                                            Tout* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  const crfr_band& v = w.v;
+  const crfr_band& h = w.h;
+  const int C = p.C;
+  const int len = m * C;
+  const int lo = __ldg(v.start + o0);
+  const int nl = __ldg(v.start + o0 + n - 1) + v.n_taps - lo;
+  const int cl = __ldg(h.start + q0);
+  const int pitch = (__ldg(h.start + q0 + m - 1) + h.n_taps - cl) * C;
+  const int chunk = min(nl, p.stage_bytes / (pitch * static_cast<int>(sizeof(Tin))));
+  Tin* staged = reinterpret_cast<Tin*>(reinterpret_cast<uint8_t*>(smem) + p.stage_off);
+  const long long row_len = static_cast<long long>(p.W) * C;
+  const long long col0 = static_cast<long long>(w.x0 + cl) * C;   // element of the first column
+  PassTimer timer;
+  phase_clock(0);
+  // the tile's horizontal weights, [t][j]: read at every tap, from the L2
+  // they would wait hundreds of cycles (the staging evicts them from L1)
+  float* s_taps = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(smem) + p.taps_off);
+  for (int e = threadIdx.x; e < h.n_taps * m; e += kThreads) {
+    const int t = e / m;
+    s_taps[e] = __ldg(h.taps + t * h.n_out + q0 + e - t * m);
+  }
+  const int lane = threadIdx.x & 31;
+  for (int i0 = 0; i0 < nl; i0 += chunk) {
+    timer.start();
+    const int k = min(chunk, nl - i0);
+    // a warp a row, its lanes along it, kStageLoads loads a lane in flight
+    // before their stores (one at a time, each waited on the L2's latency)
+    for (int r = threadIdx.x >> 5; r < k; r += kThreads / 32) {
+      const long long row = w.y0 + lo + i0 + r;
+      const bool row_in = !kPad || (row >= 0 && row < p.H);
+      const long long base = row * row_len + col0;
+      Tin* dst = staged + r * pitch;
+      for (int c0 = lane; c0 < pitch; c0 += 32 * kStageLoads) {
+        Tin vals[kStageLoads];
+#pragma unroll
+        for (int u = 0; u < kStageLoads; ++u) {
+          const int c = c0 + 32 * u;
+          vals[u] = Tin(0);
+          if (row_in && c < pitch && (!kPad || (col0 + c >= 0 && col0 + c < row_len)))
+            vals[u] = __ldg(x + base + c);
+        }
+#pragma unroll
+        for (int u = 0; u < kStageLoads; ++u)
+          if (c0 + 32 * u < pitch) dst[c0 + 32 * u] = vals[u];
+      }
+    }
+    __syncthreads();
+    timer.lap(0);
+    // (c), one output element a thread: a tile of few columns keeps more
+    // threads busy than horizontal()'s pixel a thread; the same sums
+    Walk it(len);
+    for (; it.r < k; it.next()) {
+      const int j = it.c / C;
+      const Tin* src = staged + it.r * pitch + (__ldg(h.start + q0 + j) - cl) * C + it.c - j * C;
+      float acc = 0.f;
+#pragma unroll 4
+      for (int t = 0; t < h.n_taps; ++t) acc = fmaf(s_taps[t * m + j], load_one(src + t * C), acc);
+      smem[(i0 + it.r) * len + it.c] = acc;
+    }
+    __syncthreads();
+    timer.lap(1);
+  }
+  phase_clock(1);
+  timer.store();
+  Walk it(len);                                                                         // (d)
+  for (; it.r < n; it.next()) {
+    const int o = o0 + it.r;
+    float acc[1];
+    vertical_sum<1>(acc, smem + (__ldg(v.start + o) - lo) * len + it.c, len, v, o);
+    acc[0] = fmaf(acc[0], 1.0f / 128.0f, -127.5f / 128.0f);
+    store_vec<1>(out + static_cast<size_t>(it.r) * h.n_out * C + it.c, acc);
+  }
+#ifdef CRFR_PHASE_CLOCK
+  __syncthreads();
+  phase_clock(4);
+#endif
+}
+
+// Every level of a photo's pyramid: CTA i takes tile p.tiles[i].
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(kThreads)
+pyramid_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, const Ragged p) {
+  const crfr_tile t = p.tiles[blockIdx.x];
+  const crfr_window w = p.win[t.window];
+  resize_tile<Tin, Tout, false>(
+      x, p, w, t.o0, t.n, t.q0, t.m,
+      out + w.out + (static_cast<size_t>(t.o0) * w.h.n_out + t.q0) * p.C);
+}
+
+// Every crop of a stage: a crop is p.bands x p.col_tiles tiles of p.rows x
+// p.cols outputs, one a CTA, in order. A crop with no area (w.v.n_in == 0)
+// is (0 - 127.5) / 128 everywhere.
+template <typename Tin, typename Tout>
+__global__ void __launch_bounds__(kThreads)
+crop_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, const Ragged p) {
+  const int per_crop = p.bands * p.col_tiles;
+  const int i = blockIdx.x / per_crop;
+  const int band = (blockIdx.x - i * per_crop) / p.col_tiles;
+  const int o0 = band * p.rows;
+  const int q0 = (blockIdx.x - i * per_crop - band * p.col_tiles) * p.cols;
+  const int n = min(p.rows, p.size - o0);
+  const int m = min(p.cols, p.size - q0);
+  const crfr_window w = p.win[i];
+  Tout* o = out + w.out + (static_cast<size_t>(o0) * p.size + q0) * p.C;
+  if (w.v.n_in <= 0) {
+    Walk it(m * p.C);
+    for (; it.r < n; it.next()) {
+      float y[1] = {fmaf(0.f, 1.0f / 128.0f, -127.5f / 128.0f)};
+      store_vec<1>(o + it.r * p.size * p.C + it.c, y);
+    }
+    return;
+  }
+  resize_tile<Tin, Tout, true>(x, p, w, o0, n, q0, m, o);
+}
+
 // ---- host side -------------------------------------------------------------
 
 struct Plan {
@@ -784,6 +1003,48 @@ const void* cols_kernel_for(int out_dtype) {
   return nullptr;
 }
 
+template <typename Tin, typename Tout>
+const void* ragged_fn(bool crops) {
+  return crops ? reinterpret_cast<const void*>(&crop_kernel<Tin, Tout>)
+               : reinterpret_cast<const void*>(&pyramid_kernel<Tin, Tout>);
+}
+
+const void* ragged_kernel_for(int in_dtype, int out_dtype, bool crops) {
+  if (in_dtype == 0 && out_dtype == 0) return ragged_fn<uint8_t, float>(crops);
+  if (in_dtype == 0 && out_dtype == 1) return ragged_fn<uint8_t, __nv_bfloat16>(crops);
+  if (in_dtype == 1 && out_dtype == 0) return ragged_fn<float, float>(crops);
+  if (in_dtype == 1 && out_dtype == 1) return ragged_fn<float, __nv_bfloat16>(crops);
+  return nullptr;
+}
+
+// Checks a ragged launch's arguments against the device, then launches `fn`
+// over `ctas` CTAs with `smem` bytes of dynamic shared memory: a tile's
+// horizontal sums below byte `taps_off`, its horizontal weights below
+// `stage_off`, the staging area from there to the end (both offsets
+// multiples of 16).
+int launch_ragged(const void* fn, const void* x, void* out, Ragged& p, int ctas, int taps_off,
+                  int stage_off, int smem, void* stream) {
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (fn == nullptr || x == nullptr || out == nullptr || p.win == nullptr || p.H <= 0 ||
+      p.W <= 0 || p.C <= 0 || ctas <= 0 || taps_off <= 0 || taps_off % 16 != 0 ||
+      stage_off <= taps_off || stage_off % 16 != 0 || smem <= stage_off || smem > limit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.taps_off = taps_off;
+  p.stage_off = stage_off;
+  p.stage_bytes = smem - stage_off;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  void* args[] = {const_cast<void**>(&x), &out, &p};
+  err = cudaLaunchKernel(fn, dim3(ctas), dim3(kThreads), args, smem,
+                         static_cast<cudaStream_t>(stream));
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -924,6 +1185,72 @@ int crfr_resize_two_pass_info(int in_dtype, int out_dtype, int B, int C, const c
   info[4] = tp.cols.rows;
   info[5] = kThreads;
   info[6] = limit;
+  return 0;
+}
+
+// Every level of the pyramid of one photo x (H, W, C), uint8 (in_dtype 0) or
+// f32 (1), contiguous, into the one buffer `out`, f32 (out_dtype 0) or bf16
+// (1): `windows` (device) a crfr_window a level (y0 = x0 = 0, v.n_in = H,
+// h.n_in = W, `out` the level's offset in the buffer); `tiles` (device)
+// n_tiles crfr_tiles, one a CTA; `smem` bytes of dynamic shared memory: the
+// [nl][m*C] f32 sums of the largest tile below `taps_off`, the largest
+// tile's [taps][m] horizontal weights below `stage_off`, the staging area
+// above. Returns a cudaError_t: 0 when the launch was accepted.
+int crfr_pyramid_normalize(const void* x, int in_dtype, void* out, int out_dtype, int H, int W,
+                           int C, const void* windows, const void* tiles, int n_tiles,
+                           int taps_off, int stage_off, int smem, void* stream) {
+  Ragged p{};
+  p.win = static_cast<const crfr_window*>(windows);
+  p.tiles = static_cast<const crfr_tile*>(tiles);
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  if (tiles == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_ragged(ragged_kernel_for(in_dtype, out_dtype, false), x, out, p, n_tiles,
+                       taps_off, stage_off, smem, stream);
+}
+
+// n crops of the image x (H, W, C), each resized to size x size, into `out`
+// (n, size, size, C): `windows` (device) a crfr_window a crop (its box's
+// origin and factors, `out` = i * size * size * C; v.n_in = 0 for a box with
+// no area), in tiles of `rows` x `cols` outputs, one a CTA. Otherwise as
+// crfr_pyramid_normalize.
+int crfr_crop_resize_normalize(const void* x, int in_dtype, void* out, int out_dtype, int H,
+                               int W, int C, const void* windows, int n, int size, int rows,
+                               int cols, int taps_off, int stage_off, int smem, void* stream) {
+  Ragged p{};
+  p.win = static_cast<const crfr_window*>(windows);
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  p.size = size;
+  p.rows = rows;
+  p.cols = cols;
+  if (n <= 0 || size <= 0 || rows <= 0 || rows > size || cols <= 0 || cols > size)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.bands = (size + rows - 1) / rows;
+  p.col_tiles = (size + cols - 1) / cols;
+  const long long ctas = static_cast<long long>(n) * p.bands * p.col_tiles;
+  if (ctas > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_ragged(ragged_kernel_for(in_dtype, out_dtype, true), x, out, p,
+                       static_cast<int>(ctas), taps_off, stage_off, smem, stream);
+}
+
+// The ragged kernels as compiled: info[0] registers per thread, [1] local
+// (spill) bytes per thread, [2] threads per CTA, [3] the shared memory a CTA
+// may have on this device; `crops` 0 for the pyramid kernel, 1 for crops.
+int crfr_ragged_info(int in_dtype, int out_dtype, int crops, int* info) {
+  const void* fn = ragged_kernel_for(in_dtype, out_dtype, crops != 0);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int limit = 0;
+  cudaError_t err = smem_limit(&limit);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = attr.numRegs;
+  info[1] = static_cast<int>(attr.localSizeBytes);
+  info[2] = kThreads;
+  info[3] = limit;
   return 0;
 }
 

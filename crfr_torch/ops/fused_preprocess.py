@@ -46,6 +46,19 @@ the vertical pass and the epilogue from it, with no shared memory, so at
 any size. The sums are the same in the same order in every plan, so the
 results do not depend on the height or the plan; ``resample_info`` says
 which plan a shape takes. A degrade that fits no band height raises.
+
+Two ragged forms of the resize serve a detector's photo, each one launch
+(not custom ops: no exported program traces a detector).
+``fused_pyramid_normalize`` resizes one photo to every size of a pyramid,
+each level from the photo itself, into one buffer: ``pyramid_plan`` cuts
+the levels into (row band, column tile) tiles, one a CTA, so the deep
+levels spread over the card. ``fused_crop_resize_normalize`` cuts N boxes
+of one image, zeros outside it, each resized to size²: the host looks up
+each box side's band tables and copies one table of per-crop records to
+the device (``crop_plan`` sets the tiles). Their sums are the resize's, in
+the same order, so each level and crop equals a ``fused_resize_normalize``
+launch of its own bit for bit. Their launches count in
+``fused_resize_normalize.pyramid_launches`` and ``.crop_launches``.
 """
 
 from __future__ import annotations
@@ -316,11 +329,8 @@ def _reference(x: torch.Tensor, wr: torch.Tensor, wc: torch.Tensor,
     return y.to(out_dtype).permute(0, 2, 3, 1).contiguous()
 
 
-def _launch(x: torch.Tensor, key: tuple, oh: int, ow: int, out_dtype: torch.dtype,
-            what: str, rows: int | None = None, low: torch.Tensor | None = None) -> torch.Tensor:
-    """One launch on ``x``, in bands of ``rows`` output rows (the default
-    plan when None; ``TWO_PASS`` for a resize's two-pass plan); ``low`` the
-    (B,) int32 lows of a lows key."""
+def _check_launch(x: torch.Tensor, out_dtype: torch.dtype, what: str) -> None:
+    """Raise unless the kernel takes ``x`` and ``out_dtype``."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: the kernel takes CUDA tensors, got {x.device}")
     if x.dtype not in _IN_CODES:
@@ -330,6 +340,14 @@ def _launch(x: torch.Tensor, key: tuple, oh: int, ow: int, out_dtype: torch.dtyp
                         f"got {out_dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{what}: input must be contiguous NHWC")
+
+
+def _launch(x: torch.Tensor, key: tuple, oh: int, ow: int, out_dtype: torch.dtype,
+            what: str, rows: int | None = None, low: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch on ``x``, in bands of ``rows`` output rows (the default
+    plan when None; ``TWO_PASS`` for a resize's two-pass plan); ``low`` the
+    (B,) int32 lows of a lows key."""
+    _check_launch(x, out_dtype, what)
     b, h, w, c = x.shape
     in_code, out_code = _IN_CODES[x.dtype], _OUT_CODES[out_dtype]
     rows = _fit_rows(key, c, in_code, out_code, x.device) if rows is None else rows
@@ -508,3 +526,360 @@ def _resize_fake(x: torch.Tensor, out_hw: list[int], mode: str,
                  out_dtype: torch.dtype) -> torch.Tensor:
     b, _, _, c = x.shape
     return x.new_empty((b, out_hw[0], out_hw[1], c), dtype=out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# The ragged forms: every level of a photo's pyramid, every crop of a stage
+# ---------------------------------------------------------------------------
+
+# What one CTA of a ragged launch may hold and do: its tile's horizontal sums
+# ([nl][m*C] f32), the input it stages at a time, and (the pyramid) its
+# multiply-adds. A crop takes bands of CROP_ROWS output rows where they fit.
+TILE_SUMS_BYTES = 32 << 10
+STAGE_BYTES = 48 << 10
+TILE_FMAS = 1 << 18
+CROP_ROWS = 8
+_LEVEL_ALIGN = 64         # elements: each level's output starts at a multiple (256 B of f32)
+
+
+# ``crfr_window`` of csrc/fused_preprocess.cu as a numpy record (a
+# ``crfr_tile`` is five int32): a stage's crops are filled without a loop
+_BAND_DTYPE = np.dtype([("start", "<u8"), ("taps", "<u8"), ("n_in", "<i4"), ("n_out", "<i4"),
+                        ("n_taps", "<i4"), ("pad", "<i4")])
+_WINDOW_DTYPE = np.dtype([("v", _BAND_DTYPE), ("h", _BAND_DTYPE), ("y0", "<i4"), ("x0", "<i4"),
+                          ("out", "<i8")])
+
+
+def _spans(start: np.ndarray, taps: int, step: int) -> np.ndarray:
+    """The input extent that each run of ``step`` outputs reads: for the
+    outputs [o, o + step) (the last run cut short), start[last] + taps − start[o]."""
+    first = np.arange(0, len(start), step)
+    last = np.minimum(first + step, len(start)) - 1
+    return start[last] + taps - start[first]
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _tile_shape(h: int, w: int, oh: int, ow: int, c: int, in_bytes: int,
+                mode: str) -> tuple[int, int]:
+    """(rows, cols) of a pyramid level's tiles: from bands of ``RESIZE_ROWS``
+    rows across the whole width, halve the columns down to 8, then the
+    rows down to 1, then the columns down to 1, until a tile's sums and a
+    staged row fit and its multiply-adds are at most ``TILE_FMAS``. Column
+    tiles cost nothing twice; shorter bands redo the horizontal sums of the
+    input rows two bands share."""
+    vs, vt = band_table(h, oh, mode)
+    hs, ht = band_table(w, ow, mode)
+    vt, ht = vt.shape[1], ht.shape[1]
+    n, m = min(RESIZE_ROWS, oh), ow
+    while True:
+        nl, cs = int(_spans(vs, vt, n).max()), int(_spans(hs, ht, m).max())
+        fits = nl * m * c * 4 <= TILE_SUMS_BYTES and cs * c * in_bytes <= STAGE_BYTES
+        if fits and nl * m * c * ht + n * m * c * vt <= TILE_FMAS:
+            return n, m
+        if m > 8:
+            m = -(-m // 2)
+        elif n > 1:
+            n = -(-n // 2)
+        elif m > 1:
+            m = -(-m // 2)
+        elif fits:
+            return n, m
+        else:
+            raise ValueError(f"fused_pyramid_normalize: one output of a {h}x{w}x{c} -> "
+                             f"{oh}x{ow} level reads {nl} rows of {cs} pixels, beyond "
+                             f"the kernel's shared memory")
+
+
+@functools.lru_cache(maxsize=64)
+def pyramid_plan(h: int, w: int, c: int, in_bytes: int, sizes: tuple, mode: str) -> dict:
+    """The one launch of a pyramid of an (h, w, c) photo (``in_bytes`` a
+    pixel channel) at ``sizes``: ``tiles``, one (level, o0, n, q0, m) a CTA
+    (output rows [o0, o0 + n), columns [q0, q0 + m)), the costliest first;
+    ``offsets`` of each level's output in the one buffer (multiples of 64
+    elements) and its ``total``; ``shapes``, each level's (rows, cols) a
+    tile; ``taps_off``, ``stage_off`` and ``smem``, the shared memory a CTA
+    takes (the largest tile's sums below ``taps_off``, its horizontal
+    weights below ``stage_off``, the staging area above)."""
+    tiles, offsets, shapes, off = [], [], [], 0
+    sums = weights = stage = 0
+    for level, (oh, ow) in enumerate(sizes):
+        n, m = _tile_shape(h, w, oh, ow, c, in_bytes, mode)
+        vs, vt = band_table(h, oh, mode)
+        hs, ht = band_table(w, ow, mode)
+        vt, ht = vt.shape[1], ht.shape[1]
+        for o0, nl in zip(range(0, oh, n), _spans(vs, vt, n)):
+            for q0, cs in zip(range(0, ow, m), _spans(hs, ht, m)):
+                nn, mm = min(n, oh - o0), min(m, ow - q0)
+                cost = int(nl) * mm * c * ht + nn * mm * c * vt
+                tiles.append((cost, (level, o0, nn, q0, mm)))
+                sums = max(sums, int(nl) * mm * c * 4)
+                weights = max(weights, mm * ht * 4)
+                stage = max(stage, min(STAGE_BYTES, int(nl) * int(cs) * c * in_bytes))
+        offsets.append(off)
+        shapes.append((n, m))
+        off += -(-oh * ow * c // _LEVEL_ALIGN) * _LEVEL_ALIGN
+    tiles.sort(key=lambda t: -t[0])                    # stable: ties keep their order
+    taps_off = _round16(sums)
+    stage_off = taps_off + _round16(weights)
+    return {"tiles": [t for _, t in tiles], "offsets": offsets, "total": off,
+            "shapes": shapes, "taps_off": taps_off, "stage_off": stage_off,
+            "smem": stage_off + _round16(stage)}
+
+
+def _band_record(table: tuple[torch.Tensor, torch.Tensor], n_in: int, n_out: int) -> tuple:
+    s, t = table
+    return s.data_ptr(), t.data_ptr(), n_in, n_out, t.shape[0], 0
+
+
+@functools.lru_cache(maxsize=16)
+def _pyramid_tables(h: int, w: int, c: int, in_bytes: int, sizes: tuple, mode: str,
+                    device: torch.device) -> tuple[torch.Tensor, torch.Tensor, tuple]:
+    """A pyramid plan's windows and tiles on ``device``, with the band
+    tables they point to (cached together, so those outlive the records)."""
+    plan = pyramid_plan(h, w, c, in_bytes, sizes, mode)
+    tables = tuple((_device_table(h, oh, mode, device), _device_table(w, ow, mode, device))
+                   for oh, ow in sizes)
+    wins = np.array([(_band_record(tv, h, oh), _band_record(th, w, ow), 0, 0, off)
+                     for (oh, ow), (tv, th), off in zip(sizes, tables, plan["offsets"])],
+                    _WINDOW_DTYPE)
+    tiles = np.asarray(plan["tiles"], np.int32)
+    return (torch.from_numpy(wins.view(np.uint8)).to(device),
+            torch.from_numpy(tiles.view(np.uint8).ravel()).to(device), tables)
+
+
+def _pyramid_sizes(sizes) -> tuple[tuple[int, int], ...]:
+    sizes = tuple((int(a), int(b)) for a, b in sizes)
+    if any(a < 1 or b < 1 for a, b in sizes):
+        raise ValueError(f"pyramid sizes must be positive, got {sizes}")
+    return sizes
+
+
+def _check_photo(x: torch.Tensor) -> None:
+    _check_input(x)
+    if x.shape[0] != 1:
+        raise ValueError(f"a pyramid takes one photo (1, H, W, C), got {tuple(x.shape)}")
+
+
+def fused_pyramid_normalize_reference(x: torch.Tensor, sizes, mode: str = "pil",
+                                      out_dtype: torch.dtype = torch.float32
+                                      ) -> list[torch.Tensor]:
+    """Plain PyTorch version of ``fused_pyramid_normalize``: each level by
+    ``fused_resize_normalize_reference``."""
+    _check_photo(x)
+    return [fused_resize_normalize_reference(x, hw, mode, out_dtype)
+            for hw in _pyramid_sizes(sizes)]
+
+
+def fused_pyramid_normalize(x: torch.Tensor, sizes, mode: str = "pil",
+                            out_dtype: torch.dtype = torch.float32) -> list[torch.Tensor]:
+    """One photo (1, H, W, C) of raw pixels, uint8 or f32 → each of
+    ``sizes`` ((h, w) pairs, e.g. ``MTCNN.pyramid_sizes``) bicubic-resized
+    from the photo itself and normalized: a list of (1, h, w, C)
+    ``out_dtype``. On a CUDA tensor every level comes from one launch, each
+    a contiguous view into one buffer, counted in
+    ``fused_resize_normalize.pyramid_launches``; each level equals
+    ``fused_resize_normalize`` of the photo at its size bit for bit. Not a
+    custom op: no exported program traces a detector."""
+    _check_photo(x)
+    sizes = _pyramid_sizes(sizes)
+    if x.device.type == "cpu":
+        return fused_pyramid_normalize_reference(x, sizes, mode, out_dtype)
+    what = "fused_pyramid_normalize"
+    _check_launch(x, out_dtype, what)
+    if not sizes:
+        return []
+    _, h, w, c = x.shape
+    in_code, out_code = _IN_CODES[x.dtype], _OUT_CODES[out_dtype]
+    plan = pyramid_plan(h, w, c, x.element_size(), sizes, mode)
+    wins, tiles, _ = _pyramid_tables(h, w, c, x.element_size(), sizes, mode, x.device)
+    lib = _build.load_library()
+    out = torch.empty(plan["total"], dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.crfr_pyramid_normalize(
+            x.data_ptr(), in_code, out.data_ptr(), out_code, h, w, c, wins.data_ptr(),
+            tiles.data_ptr(), len(plan["tiles"]), plan["taps_off"], plan["stage_off"],
+            plan["smem"],
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, err, what)
+    fused_resize_normalize.pyramid_launches += 1
+    return [out[o:o + oh * ow * c].view(1, oh, ow, c)
+            for (oh, ow), o in zip(sizes, plan["offsets"])]
+
+
+def _host_boxes(boxes) -> np.ndarray:
+    """(N, 4) integer [x1, y1, x2, y2] boxes held on the host → int64 numpy."""
+    if isinstance(boxes, torch.Tensor):
+        if boxes.device.type != "cpu":
+            raise ValueError("the boxes are read on the host (each crop's factors are "
+                             "looked up there): pass a numpy array or a CPU tensor")
+        boxes = boxes.numpy()
+    b = np.asarray(boxes)
+    if b.ndim != 2 or b.shape[1] != 4 or not np.issubdtype(b.dtype, np.integer):
+        raise TypeError(f"boxes must be integer (N, 4) [x1, y1, x2, y2], got {b.dtype} "
+                        f"{b.shape}")
+    return b.astype(np.int64)
+
+
+def _check_image(img: torch.Tensor) -> None:
+    if img.ndim != 3:
+        raise ValueError(f"expected one image (H, W, C), got shape {tuple(img.shape)}")
+
+
+def padded_crop(img: torch.Tensor, x1: int, y1: int, x2: int, y2: int) -> torch.Tensor:
+    """The window [y1, y2) × [x1, x2) of ``img`` (H, W, C), zeros where it
+    leaves the image (a view where it does not)."""
+    h, w, c = img.shape
+    sx1, sy1, sx2, sy2 = max(x1, 0), max(y1, 0), min(x2, w), min(y2, h)
+    if (sx1, sy1, sx2, sy2) == (x1, y1, x2, y2):
+        return img[y1:y2, x1:x2]
+    crop = torch.zeros((y2 - y1, x2 - x1, c), dtype=img.dtype, device=img.device)
+    if sx2 > sx1 and sy2 > sy1:
+        crop[sy1 - y1:sy2 - y1, sx1 - x1:sx2 - x1] = img[sy1:sy2, sx1:sx2]
+    return crop
+
+
+def fused_crop_resize_normalize_reference(img: torch.Tensor, boxes, size: int,
+                                          mode: str = "pil",
+                                          out_dtype: torch.dtype = torch.float32
+                                          ) -> torch.Tensor:
+    """Plain PyTorch version of ``fused_crop_resize_normalize``: each box
+    cut from ``img`` by ``padded_crop`` and resized by
+    ``fused_resize_normalize_reference``."""
+    _check_image(img)
+    b = _host_boxes(boxes)
+    c = img.shape[2]
+    out = torch.full((len(b), size, size, c), -MEAN / STD, dtype=out_dtype, device=img.device)
+    for i, (x1, y1, x2, y2) in enumerate(b.tolist()):
+        if x2 > x1 and y2 > y1:
+            crop = padded_crop(img, x1, y1, x2, y2)[None]
+            out[i] = fused_resize_normalize_reference(crop, (size, size), mode, out_dtype)[0]
+    return out
+
+
+@functools.lru_cache(maxsize=_SHAPES)
+def _crop_extents(side: int, size: int, mode: str) -> np.ndarray:
+    """For k = 1 ... size: the most input rows (or columns) that a run of k
+    of the ``size`` outputs of a crop of ``side`` reads."""
+    start, taps = band_table(side, size, mode)
+    out = np.asarray([_spans(start, taps.shape[1], k).max() for k in range(1, size + 1)])
+    out.flags.writeable = False
+    return out
+
+
+def crop_plan(heights, widths, size: int, c: int, in_bytes: int, mode: str) -> dict:
+    """The one launch of a stage's crops of these box heights and widths
+    (those with area): each crop in tiles of ``rows`` × ``cols`` outputs,
+    one a CTA (bands of ``CROP_ROWS`` rows across the crop where their sums
+    fit, else shorter bands, then narrower column tiles), ``taps_off``,
+    ``stage_off`` and ``smem`` as in ``pyramid_plan``. Raises when one
+    output's sums or one staged row do not fit."""
+    ext = [np.max([_crop_extents(s, size, mode) for s in set(map(int, sides))], 0)
+           if len(sides) else np.ones(size, np.int64) for sides in (heights, widths)]
+    rows, cols = min(CROP_ROWS, size), size
+    while True:
+        nl, pitch = int(ext[0][rows - 1]), int(ext[1][cols - 1]) * c * in_bytes
+        sums = nl * cols * c * 4
+        if sums <= TILE_SUMS_BYTES and pitch <= STAGE_BYTES:
+            taps_off = _round16(sums)
+            stage_off = taps_off + _round16(cols * int(ext[1][0]) * 4)    # ext[1][0]: taps
+            return {"rows": rows, "cols": cols, "taps_off": taps_off, "stage_off": stage_off,
+                    "smem": stage_off + _round16(min(STAGE_BYTES, nl * pitch))}
+        if rows > 1:
+            rows = -(-rows // 2)
+        elif cols > 1:
+            cols = -(-cols // 2)
+        else:
+            raise ValueError(f"fused_crop_resize_normalize: a crop of {max(heights)}x"
+                             f"{max(widths)} -> {size}x{size}x{c} is beyond the kernel's "
+                             f"shared memory")
+
+
+@functools.lru_cache(maxsize=_SHAPES)
+def _side_factor(side: int, size: int, mode: str, device: torch.device) -> tuple:
+    """A crop side's factor (side → size) on ``device``: its band tables'
+    start and taps pointers, its taps, and the tables (kept alive here)."""
+    start, taps = _device_table(side, size, mode, device)
+    return start.data_ptr(), taps.data_ptr(), taps.shape[0], (start, taps)
+
+
+def _crop_windows(b: np.ndarray, size: int, c: int, mode: str,
+                  device: torch.device) -> tuple[np.ndarray, np.ndarray, np.ndarray, list]:
+    """Each box's ``crfr_window`` as a numpy record (its origin and the band
+    tables of its two factors, looked up once a side), the heights and widths
+    of the boxes with area, and the factors the records point to."""
+    cw, ch = b[:, 2] - b[:, 0], b[:, 3] - b[:, 1]
+    ok = (cw > 0) & (ch > 0)
+    sides = np.unique(np.concatenate([cw[ok], ch[ok]]))
+    factors = [_side_factor(int(s), size, mode, device) for s in sides]
+    start = np.array([f[0] for f in factors], np.uint64)
+    taps = np.array([f[1] for f in factors], np.uint64)
+    n_taps = np.array([f[2] for f in factors], np.int32)
+    win = np.zeros(len(b), _WINDOW_DTYPE)
+    for field, side in (("v", ch), ("h", cw)):
+        i = np.searchsorted(sides, side[ok])
+        rec = win[field]
+        rec["start"][ok], rec["taps"][ok], rec["n_taps"][ok] = start[i], taps[i], n_taps[i]
+        rec["n_in"][ok], rec["n_out"][ok] = side[ok], size
+    win["y0"], win["x0"] = b[:, 1], b[:, 0]
+    win["out"] = np.arange(len(b), dtype=np.int64) * size * size * c
+    return win, ch[ok], cw[ok], factors
+
+
+def fused_crop_resize_normalize(img: torch.Tensor, boxes, size: int, mode: str = "pil",
+                                out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """One image (H, W, C) of raw pixels, uint8 or f32, and N boxes
+    [x1, y1, x2, y2] (an integer (N, 4) array on the host: numpy or a CPU
+    tensor) → (N, size, size, C) ``out_dtype``: each box's window of the
+    image, zero where it leaves the image, bicubic-resized to size² and
+    normalized; a box with no area gives (0 − 127.5)/128 everywhere. On a
+    CUDA image every crop comes from one launch, counted in
+    ``fused_resize_normalize.crop_launches``: the host looks up each side's
+    band tables and copies one table of per-crop structs (box and factors)
+    to the device. Each crop equals ``fused_resize_normalize`` of the
+    zero-padded crop bit for bit. Not a custom op: no exported program
+    traces a detector."""
+    _check_image(img)
+    b = _host_boxes(boxes)
+    if img.device.type == "cpu":
+        return fused_crop_resize_normalize_reference(img, b, size, mode, out_dtype)
+    what = "fused_crop_resize_normalize"
+    _check_launch(img, out_dtype, what)
+    h, w, c = img.shape
+    out = torch.empty((len(b), size, size, c), dtype=out_dtype, device=img.device)
+    if len(b) == 0:
+        return out
+    win, heights, widths, _tables = _crop_windows(b, size, c, mode, img.device)
+    plan = crop_plan(heights, widths, size, c, img.element_size(), mode)
+    # pinned, so the copy waits on nothing the stream still runs
+    dev = torch.from_numpy(win.view(np.uint8)).pin_memory().to(img.device, non_blocking=True)
+    lib = _build.load_library()
+    with torch.cuda.device(img.device):
+        err = lib.crfr_crop_resize_normalize(
+            img.data_ptr(), _IN_CODES[img.dtype], out.data_ptr(), _OUT_CODES[out_dtype], h, w,
+            c, dev.data_ptr(), len(b), size, plan["rows"], plan["cols"], plan["taps_off"],
+            plan["stage_off"], plan["smem"],
+            torch.cuda.current_stream(img.device).cuda_stream)
+    _build.check(lib, err, what)
+    fused_resize_normalize.crop_launches += 1
+    return out
+
+
+fused_resize_normalize.pyramid_launches = 0   # launches of the pyramid form
+fused_resize_normalize.crop_launches = 0      # launches of the crop form
+
+
+def ragged_info(in_dtype: torch.dtype = torch.uint8, out_dtype: torch.dtype = torch.float32,
+                crops: bool = False) -> dict:
+    """The pyramid kernel (or, with ``crops``, the crop kernel) as compiled
+    for these types on the current CUDA device: registers and local-memory
+    (spill) bytes per thread, threads per CTA, the shared memory a CTA may
+    have."""
+    lib = _build.load_library()
+    info = (ctypes.c_int * 4)()
+    err = lib.crfr_ragged_info(_IN_CODES[in_dtype], _OUT_CODES[out_dtype], int(crops),
+                               ctypes.addressof(info))
+    _build.check(lib, err, "ragged_info")
+    return dict(zip(("registers", "spill_bytes", "threads", "smem_limit"), info))

@@ -6,8 +6,8 @@ construction, and P/R/O-net train briefly on crops sampled from those
 scenes; ``pipeline.FaceRecognizer``'s detect → align → embed then runs on
 scenes the cascade has never seen. The renderer and the sampler are numpy
 copies of ``crfr``'s and draw the same arrays from the same generator; the
-crops go through the port's ``crop_resize`` (one launch of the resize
-kernel each, normalized on the device). Targets follow the canonical MTCNN
+crops of a scene go through the port's ``crop_resize`` (one launch of the
+resize kernel's crop form for all of them, normalized on the device). Targets follow the canonical MTCNN
 conventions the host decode expects: box deltas normalized by the crop
 side (applied as ``x1 += dx1·w``), landmarks relative to the crop box.
 

@@ -12,9 +12,11 @@ K = 27 and N off 8, the dtype it emits under autocast, and the one launch
 of the preprocessing kernel in an int8 embed batch. The resize at the
 detector's photo sizes (pyramid levels of 640×480 and 1280×720 photos in
 shorter bands and by the two-pass plan, a 400 px box's crops), the two-pass
-plan equal to the bands bit for bit where both fit, and the MTCNN cascade
-on the card equal to the same cascade on CPU tensors, with one resize
-launch a pyramid level and a crop.
+plan equal to the bands bit for bit where both fit; the ragged forms (every
+level of a photo's pyramid in one launch, a stage's crops in one launch)
+against their plain versions and, bit for bit, against a launch a level or
+a crop; and the MTCNN cascade on the card equal to the same cascade on CPU
+tensors, with three launches of the ragged forms a photo.
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor crfr, so it also runs where only PyTorch is installed:
@@ -23,6 +25,7 @@ neither JAX nor crfr, so it also runs where only PyTorch is installed:
 """
 
 import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
+import numpy as np
 import pytest
 import torch
 
@@ -706,10 +709,9 @@ def test_two_pass_plan_takes_any_width(cuda):
 
 def test_detect_on_the_card_equals_the_cpu(cuda):
     """The cascade (random nets, thresholds 0.3/0/0) on a 160×120 photo:
-    one resize launch a pyramid level and a crop; the detections equal the
+    three launches of kernel 2's ragged forms (the pyramid, the R-net crops,
+    the O-net crops) and none a level or a crop; the detections equal the
     same cascade's on CPU tensors."""
-    import numpy as np
-
     from crfr_torch.models.mtcnn import MTCNN
 
     rng = np.random.default_rng(0)
@@ -717,14 +719,153 @@ def test_detect_on_the_card_equals_the_cpu(cuda):
     card = MTCNN(min_face=40, thresholds=(0.3, 0.0, 0.0))
     cpu = MTCNN(min_face=40, thresholds=(0.3, 0.0, 0.0), device="cpu")
     x = torch.from_numpy(img).cuda()
-    levels = len(card.pyramid(x))
-    n1 = len(card.stage1(x))
-    n2 = len(card.stage2(x, card.stage1(x)))
-    before = fp.fused_resize_normalize.launches
+    assert len(card.stage2(x, card.stage1(x))) > 0          # both crop stages run
+    before = _ragged_counts()
     got = card.detect(img)
-    assert fp.fused_resize_normalize.launches - before == levels + n1 + n2
+    assert tuple(a - b for a, b in zip(_ragged_counts(), before)) == (0, 1, 2)
     want = cpu.detect(img)
     assert len(got.boxes) == len(want.boxes) > 0
     np.testing.assert_allclose(got.boxes, want.boxes, rtol=0, atol=1e-2)
     np.testing.assert_allclose(got.scores, want.scores, rtol=0, atol=1e-4)
     np.testing.assert_allclose(got.landmarks, want.landmarks, rtol=0, atol=1e-2)
+
+
+def _ragged_counts():
+    return (fp.fused_resize_normalize.launches, fp.fused_resize_normalize.pyramid_launches,
+            fp.fused_resize_normalize.crop_launches)
+
+
+def _boxes(n, h, w, seed=0):
+    """Boxes inside, partly and wholly outside an (h, w) photo, one with no
+    area, one the whole photo, sides 3 to 400, cw != ch for most."""
+    from crfr_torch.bench.ragged_levels import photo_boxes
+
+    b = photo_boxes(n, h, w, seed=seed, min_side=3, unequal=0.8)
+    b[2] = [0, 0, w, h]
+    return b
+
+
+def _old_crops(img, boxes, size, out_dtype):
+    """A launch a crop, as crop_resize made them before the crop form."""
+    out = torch.full((len(boxes), size, size, img.shape[2]), -127.5 / 128.0, dtype=out_dtype,
+                     device=img.device)
+    for i, (x1, y1, x2, y2) in enumerate(boxes.tolist()):
+        if x2 > x1 and y2 > y1:
+            crop = fp.padded_crop(img, x1, y1, x2, y2).contiguous()[None]
+            out[i] = fp.fused_resize_normalize(crop, (size, size), "pil", out_dtype)[0]
+    return out
+
+
+def _pyramid_sizes(h, w, min_face=20):
+    from crfr_torch.models.mtcnn import MTCNN
+
+    return [hw for _, hw in MTCNN(min_face=min_face, device="cpu").pyramid_sizes(h, w)]
+
+
+@pytest.mark.parametrize("out_dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float32])
+@pytest.mark.parametrize("hw,c", [((480, 640), 3), ((720, 1280), 3), ((120, 160), 1),
+                                  ((37, 411), 4)])
+def test_pyramid_form_matches_plain_and_the_per_level_launches(cuda, hw, c, in_dtype,
+                                                               out_dtype, atol):
+    """Every level of a photo's pyramid at min_face 20 (a wide and a square
+    level added) from one launch: each within ``atol`` of the plain version,
+    bit for bit the per-level launch (no level splits a sum), a contiguous
+    view into one buffer."""
+    x = _pixels((1, *hw, c), in_dtype, cuda, seed=hw[0])
+    sizes = _pyramid_sizes(*hw) + [(12, 400), (hw[0], hw[0])]
+    before = _ragged_counts()
+    got = fp.fused_pyramid_normalize(x, sizes, "pil", out_dtype)
+    assert tuple(a - b for a, b in zip(_ragged_counts(), before)) == (0, 1, 0)
+    want = fp.fused_pyramid_normalize_reference(x, sizes, "pil", out_dtype)
+    torch.cuda.synchronize()
+    base = got[0].untyped_storage().data_ptr()
+    for hw_l, g, wn in zip(sizes, got, want):
+        assert g.shape == (1, *hw_l, c) and g.dtype == out_dtype and g.is_contiguous()
+        store, start = g.untyped_storage().data_ptr(), g.data_ptr()     # one buffer,
+        assert store == base and start % (64 * g.element_size()) == 0   # 64-element aligned
+        torch.testing.assert_close(g.float(), wn.float(), atol=atol, rtol=0)
+        assert torch.equal(g, fp.fused_resize_normalize(x, hw_l, "pil", out_dtype))
+
+
+@pytest.mark.parametrize("size", [12, 24, 48])
+@pytest.mark.parametrize("out_dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.float32])
+def test_crop_form_matches_plain_and_the_per_crop_launches(cuda, in_dtype, out_dtype, atol,
+                                                           size):
+    """300 boxes of a 480×640 photo (inside, partly and wholly outside, no
+    area, cw != ch) from one launch: within ``atol`` of the plain version,
+    bit for bit a launch a zero-padded crop."""
+    img = _pixels((480, 640, 3), in_dtype, cuda, seed=size)
+    boxes = _boxes(300, 480, 640, seed=size)
+    before = _ragged_counts()
+    got = fp.fused_crop_resize_normalize(img, boxes, size, "pil", out_dtype)
+    assert tuple(a - b for a, b in zip(_ragged_counts(), before)) == (0, 0, 1)
+    want = fp.fused_crop_resize_normalize_reference(img, boxes, size, "pil", out_dtype)
+    torch.cuda.synchronize()
+    assert got.shape == (300, size, size, 3) and got.dtype == out_dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=0)
+    assert (got[0] == -127.5 / 128.0).all() and (got[1] == -127.5 / 128.0).all()
+    assert torch.equal(got, _old_crops(img, boxes, size, out_dtype))
+
+
+def test_crop_form_takes_an_unaligned_image_and_no_boxes(cuda):
+    big = _pixels((100 * 90 * 3 + 1,), torch.uint8, cuda)
+    img = big[1:].view(100, 90, 3)
+    boxes = _boxes(40, 100, 90, seed=4)
+    got = fp.fused_crop_resize_normalize(img, boxes, 24)
+    torch.cuda.synchronize()
+    assert torch.equal(got, _old_crops(img.contiguous(), boxes, 24, torch.float32))
+    before = _ragged_counts()
+    empty = fp.fused_crop_resize_normalize(img, boxes[:0], 24)
+    assert empty.shape == (0, 24, 24, 3) and _ragged_counts() == before
+
+
+def test_ragged_forms_never_take_the_plain_version(cuda, monkeypatch):
+    x = _pixels((1, 240, 320, 3), torch.uint8, cuda)
+    sizes = _pyramid_sizes(240, 320)
+    boxes = _boxes(50, 240, 320)
+    want = fp.fused_pyramid_normalize_reference(x, sizes)
+    want_c = fp.fused_crop_resize_normalize_reference(x[0], boxes, 24)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("_reference", "fused_resize_normalize_reference",
+                 "fused_pyramid_normalize_reference", "fused_crop_resize_normalize_reference",
+                 "_launch"):
+        monkeypatch.setattr(fp, name, refuse)
+    got = fp.fused_pyramid_normalize(x, sizes)
+    got_c = fp.fused_crop_resize_normalize(x[0], boxes, 24)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=1e-4, rtol=0)
+    torch.testing.assert_close(got_c, want_c, atol=1e-4, rtol=0)
+
+
+def test_ragged_forms_refuse_what_they_do_not_take(cuda):
+    x = _pixels((1, 64, 64, 3), torch.uint8, cuda)
+    with pytest.raises(ValueError, match="one photo"):
+        fp.fused_pyramid_normalize(_pixels((2, 64, 64, 3), torch.uint8, cuda), [(32, 32)])
+    with pytest.raises(TypeError, match="uint8 or float32"):
+        fp.fused_pyramid_normalize(x.int(), [(32, 32)])
+    with pytest.raises(ValueError, match="on the host"):
+        fp.fused_crop_resize_normalize(x[0], torch.zeros((1, 4), dtype=torch.int32,
+                                                         device=cuda), 24)
+    # one output row of a 24 px crop of a 40,000-row box reads ~6,700 rows
+    with pytest.raises(ValueError, match="shared memory"):
+        fp.fused_crop_resize_normalize(x[0], np.asarray([[0, 0, 30, 40000]]), 24)
+    assert fp.fused_pyramid_normalize(x, []) == []
+
+
+def test_mtcnn_train_step_launches_the_crop_form_once_a_net(cuda):
+    """One scene batch of ``train_mtcnn_synthetic`` on the card: each net's
+    crops of each scene in one launch of the crop form, no other launch."""
+    from crfr_torch.models.mtcnn import MTCNN
+    from crfr_torch.train.mtcnn_train import train_mtcnn_synthetic
+
+    mt = MTCNN(min_face=40)
+    before = _ragged_counts()
+    losses = train_mtcnn_synthetic(mt, steps=1, batch_scenes=2, seed=0)
+    assert tuple(a - b for a, b in zip(_ragged_counts(), before)) == (0, 0, 3 * 2)
+    assert all(np.isfinite(v) for v in losses.values())
