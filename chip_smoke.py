@@ -65,7 +65,12 @@ since the script started):
    pil and cv2, held against its plain version, against float64, and bit
    for bit against launches of the int form on each low's images; timed
    beside its bound, the plain version and one ``torch.einsum`` of the
-   gathered per-image operators, and at shorter band heights;
+   gathered per-image operators, and with every low at one band height
+   (56, 28, 16 rows; 56 for all was the plan of old); its entry carries the
+   plan (each low's band height, the shared-memory budget, CTAs an SM by
+   the occupancy API), and one call at B=512 runs under
+   ``torch.cuda.set_sync_debug_mode("error")`` with the launch count set to
+   0 just before it and read just after (``launches_a_call``, which must be 1);
 3. embed: the main path, ``build_embed_pipeline("ir_50")`` at B=256 on
    random uint8 images (IR-50 in bf16, weights from seed 0), with the
    launch counters reset just before one call and read just after (exactly
@@ -573,11 +578,12 @@ def operator_bytes(fp, keys: list[tuple]) -> int:
 def kernel_case(fp, which: str, x: torch.Tensor, arg, mode: str, out_dtype: torch.dtype,
                 timed: bool, rows_sweep: tuple[int, ...] = ()) -> dict:
     """Kernel vs plain version vs float64 on ``x``; times when ``timed``, and
-    at each band height of ``rows_sweep`` (for a degrade, those no taller
-    than its plan's, the tallest that fits). ``arg`` is a degrade's low, a
-    resize's (oh, ow), or a degrade's (B,) int32 tensor of lows in ``LOWS``,
-    one per image; that form must also equal, bit for bit, launches of the
-    int form on each low's images."""
+    at each band height of ``rows_sweep`` (for an int low, those no taller
+    than its plan's, the tallest that fits; for a low per image, every low
+    at that height). ``arg`` is a degrade's low, a resize's (oh, ow), or a
+    degrade's (B,) int32 tensor of lows in ``LOWS``, one per image; that
+    form must also equal, bit for bit, launches of the int form on each
+    low's images."""
     kern = getattr(fp, which)
     plain = getattr(fp, which + "_reference")
     b, h, w, c = x.shape
@@ -645,7 +651,8 @@ def kernel_case(fp, which: str, x: torch.Tensor, arg, mode: str, out_dtype: torc
         if rows_sweep:
             sweep = {}
             for r in rows_sweep:
-                if which == "fused_degrade_normalize" and r > case["plan"]["rows"]:
+                if (which == "fused_degrade_normalize" and not per_image
+                        and r > case["plan"]["rows"]):
                     continue
                 run = lambda: fp._launch(x, key, oh, ow, out_dtype, which, rows=r,  # noqa: E731
                                          low=arg if per_image else None)
@@ -659,24 +666,57 @@ def kernel_case(fp, which: str, x: torch.Tensor, arg, mode: str, out_dtype: torc
     return case
 
 
+def lows_one_call(fp, x: torch.Tensor, lows: torch.Tensor) -> dict:
+    """One call of the form with a low per image at B=512 (its caches
+    filled) under ``torch.cuda.set_sync_debug_mode("error")``: it must
+    neither read the lows back nor wait on the card, equal the call before
+    it, and launch the kernel once (the count set to 0 just before the call
+    and read just after)."""
+    want = fp.fused_degrade_normalize(x, lows, "pil", torch.bfloat16, lows=LOWS)
+    torch.cuda.synchronize()
+    fp.fused_degrade_normalize.lows_launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fp.fused_degrade_normalize(x, lows, "pil", torch.bfloat16, lows=LOWS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = fp.fused_degrade_normalize.lows_launches
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{LOWS_NAME}: the call under the sync check differs")
+    if launches != 1:
+        raise AssertionError(f"{LOWS_NAME}: a call launched the kernel {launches} times, not 1")
+    return {"sync_debug_mode": "error", "synchronized": False, "equal": True,
+            "launches": launches}
+
+
 def phase_kernels_lows(fp) -> dict:
     g = torch.Generator(device="cuda").manual_seed(7)
     u8 = torch.randint(0, 256, (TRAIN_B, S, S, 3), generator=g, device="cuda", dtype=torch.uint8)
     lows = torch.randint(LOWS[0], LOWS[1] + 1, (TRAIN_B,), generator=g, device="cuda",
                          dtype=torch.int32)
-    which, sweep = "fused_degrade_normalize", (S, 56, 28, 16)
+    # each low at its own height by default; the sweep puts every low at one
+    # height (56 rows for all was the plan of old, one CTA an SM)
+    which, sweep = "fused_degrade_normalize", (56, 28, 16)
     cases = [kernel_case(fp, which, u8, lows, "pil", torch.bfloat16, True, sweep),
              kernel_case(fp, which, u8.float(), lows, "pil", torch.float32, True, sweep),
              kernel_case(fp, which, u8, lows, "cv2", torch.bfloat16, False),
              kernel_case(fp, which, u8.float(), lows, "cv2", torch.float32, False)]
+    for case in cases:
+        heights = case["plan"]["rows_by_low"]
+        case["plan"]["rows_by_low"] = {str(r): [LOWS[0] + i for i, h in enumerate(heights)
+                                                if h == r] for r in sorted(set(heights))}
     plan = {k: cases[0]["plan"][k] for k in ("registers", "spill_bytes", "smem_bytes", "ctas",
-                                             "rows")}
+                                             "rows", "bands", "ctas_per_sm", "smem_budget",
+                                             "rows_by_low")}
+    one_call = lows_one_call(fp, u8, lows)
+    plan["launches_a_call"] = one_call["launches"]
     return {"name": LOWS_NAME, "route": "cuda",
             "source": "crfr_torch/ops/csrc/fused_preprocess.cu",
             "replaces": "crfr/ops/fused_pallas.py:34",
             "computes": "crfr/train/loop.py:263-278 (the train step's per-image einsum and "
                         "normalize)", "on_main_path": True,
-            "cases": cases, **_headline(cases[0]), **plan}
+            "cases": cases, "one_call": one_call, **_headline(cases[0]), **plan}
 
 
 def phase_kernels(fp) -> list[dict]:

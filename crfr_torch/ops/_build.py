@@ -44,10 +44,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.crfr_resample_normalize.restype = i
     lib.crfr_resample_info.argtypes = [i, i, i, i, p, i, i, i, i, p]
     lib.crfr_resample_info.restype = i
-    lib.crfr_degrade_lows_normalize.argtypes = [p, i, p, i, i, i, p, p, i, i, p, i, p, p]
+    lib.crfr_degrade_lows_normalize.argtypes = [p, i, p, i, i, i, p, p, i, i, p, p, p, p, p]
     lib.crfr_degrade_lows_normalize.restype = i
-    lib.crfr_degrade_lows_info.argtypes = [i, i, i, i, p, i, i, p, p]
+    lib.crfr_degrade_lows_info.argtypes = [i, i, i, i, p, i, p, p, p]
     lib.crfr_degrade_lows_info.restype = i
+    lib.crfr_degrade_lows_device.argtypes = [p]
+    lib.crfr_degrade_lows_device.restype = i
     lib.crfr_resize_two_pass.argtypes = [p, i, p, p, i, i, i, p, p]
     lib.crfr_resize_two_pass.restype = i
     lib.crfr_resize_two_pass_info.argtypes = [i, i, i, i, p, p]

@@ -60,14 +60,28 @@
 //
 // A low per image (degrade_lows_kernel, the train step's form; crfr's train
 // step computes it as einsum('boi,bijc,bpj->bopc', W[idx], x, W[idx]),
-// crfr/train/loop.py:263-278): the host builds the four band tables of
-// every low of the range once, and a device table of their structs; each
-// CTA reads its image's low, copies that low's four structs over p.op and
-// runs the same band. The shared-memory plan holds the largest low's
-// buffers, so large lows (up to S) take shorter bands (56 rows for uint8 at
-// 112², 28 for f32) and the bands run as several waves. Each output's sums
-// are the int form's, bit for bit. At B=512, 112², uint8 -> bf16 it must
-// move 57.8 MB, 0.017 ms at 3.35 TB/s: bound by bytes.
+// crfr/train/loop.py:263-278). At B=512, 112², uint8 -> bf16 it must move
+// 57.8 MB, 0.017 ms at 3.35 TB/s: bound by bytes. The lows stay on the
+// device (the host never reads them), so the host plans every low of the
+// range once (crfr_torch/ops/fused_preprocess.py, lows_plan, which owns the
+// layout): each low gets its own band height, the tallest whose buffers fit
+// the shared memory of one of kLowsCtasPerSm CTAs an SM (whole images for
+// uint8 lows up to 57 at 112², 56 rows up to 91, 28 above), or of fewer
+// CTAs where some low fits no height in that (float32 pil input at
+// 112²x3: a row of output at low 8 reads ~100 input rows); each low's
+// [span][low*C] buffer lies over its staged input rows, which (a) has read
+// before (b) writes it. The host uploads a crfr_low_plan record a low
+// beside its four band structs; here make_plan_lows only checks that each
+// record's buffers fit and do not clash. A launch sizes its shared memory
+// for the largest of those records and covers B x (the most bands of any
+// low) CTAs, band-major: band 0 of every image first (the whole images,
+// the costliest CTAs), then band 1, ... Two CTAs an SM overlap one CTA's
+// passes and barriers with the other's: at one CTA an SM (one plan for all
+// lows) each CTA's passes ran one after another with nothing to hide them.
+// A CTA reads its image's low and that low's record and structs, returns at
+// once where its band index is past that low's bands, and else runs the
+// int form's band. Each output's sums are the int form's, bit for bit,
+// whatever the height.
 //
 // The ragged forms, for a detector's photo (crfr_pyramid_normalize,
 // crfr_crop_resize_normalize). A pyramid is every level of one photo, each
@@ -128,11 +142,23 @@ typedef struct {
 typedef struct {
   int window, o0, n, q0, m;
 } crfr_tile;
+
+// One low's plan in a degrade with a low per image: output rows per band,
+// the float offsets of its [span][W*C] and [span][low*C] buffers (its
+// staged input rows start at 0), and its bytes of shared memory.
+typedef struct {
+  int rows, rows_off, low_off, smem;
+} crfr_low_plan;
 }
 
 namespace {
 
 constexpr int kThreads = 384;
+// CTAs an SM that the form with a low per image plans for: its registers
+// are held to it, and the host reads it (crfr_degrade_lows_device) to size
+// each low's shared memory. Three, at 56 registers, spilled and ran slower
+// than two (PERF.md).
+constexpr int kLowsCtasPerSm = 2;
 
 struct Params {
   crfr_band op[4];  // degrade: down H, down W, up H, up W; resize: H, W
@@ -144,8 +170,9 @@ struct Params {
   int in_vec;       // input elements per load in (a)
   int out_vec;      // outputs per store in (d)
   // a low per image (degrade_lows_kernel): image i takes the four factors
-  // table[4 * (lows[i] - low0) ...], for lows in [low0, low0 + n_lows)
+  // table[4 * l ...] and the plan plans[l], l = lows[i] - low0 < n_lows
   const crfr_band* table;
+  const crfr_low_plan* plans;
   const int* lows;
   int low0, n_lows;
 };
@@ -278,8 +305,14 @@ __device__ __forceinline__ void phase_clock(int k) {
     crfr_phase_clock_buf[blockIdx.x * 8 + 7] = sm;
   }
 }
+// word 6 of the CTA's record: what it worked on (a low per image: the low)
+__device__ __forceinline__ void phase_tag(int v) {
+  if (threadIdx.x == 0 && crfr_phase_clock_buf != nullptr)
+    crfr_phase_clock_buf[blockIdx.x * 8 + 6] = v;
+}
 #else
 __device__ __forceinline__ void phase_clock(int) {}
+__device__ __forceinline__ void phase_tag(int) {}
 #endif
 
 // The ragged forms' tile, under CRFR_PHASE_CLOCK: thread 0 sums the time of
@@ -529,17 +562,15 @@ __device__ __forceinline__ void vertical_store_by_width(int vec, const float* __
   }
 }
 
-// One CTA's band. grid (B * bands); block kThreads; dynamic shared memory
-// from make_plan(). The vertical factor into the output (up along H, or the
-// resize's H) names the rows a band reads before its last pass:
-// [lo, lo + nl), nl <= span.
+// One CTA's band: output rows [r0, r0 + rows) of image img; block kThreads;
+// dynamic shared memory from make_plan(). The vertical factor into the
+// output (up along H, or the resize's H) names the rows a band reads before
+// its last pass: [lo, lo + nl), nl <= span.
 template <typename Tin, typename Tout, bool kDegrade>
 __device__ __forceinline__ void resample_band(const Tin* __restrict__ x, Tout* __restrict__ out,
-                                              const Params& p) {
+                                              const Params& p, int img, int r0) {
   extern __shared__ __align__(16) float smem[];
   phase_clock(0);
-  const int img = blockIdx.x / p.bands;
-  const int r0 = (blockIdx.x - img * p.bands) * p.rows;
   const int n = min(p.rows, p.OH - r0);
   const int in_len = p.W * p.C;
   const int out_len = p.OW * p.C;
@@ -585,22 +616,26 @@ __device__ __forceinline__ void resample_band(const Tin* __restrict__ x, Tout* _
 template <typename Tin, typename Tout, bool kDegrade>
 __global__ void __launch_bounds__(kThreads)
 resample_normalize_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, const Params p) {
-  resample_band<Tin, Tout, kDegrade>(x, out, p);
+  const int img = blockIdx.x / p.bands;
+  resample_band<Tin, Tout, kDegrade>(x, out, p, img, (blockIdx.x - img * p.bands) * p.rows);
 }
 
-// A degrade with a low per image: the CTA reads its image's low, takes that
-// low's four band tables from the device table in place of p.op, and runs
-// the same band. The shared-memory plan holds the largest low's buffers. A
-// low outside the table writes NaN over the band rather than read outside it.
+// A degrade with a low per image. grid (bands * B), band-major: CTA i takes
+// band i / B of image i % B. It reads the image's low, takes that low's plan
+// and four band tables from the device tables in place of p's, and runs the
+// int form's band, or returns where the low has fewer bands. A low outside
+// the table writes NaN over the image (band 0's CTA) rather than read
+// outside it.
 template <typename Tin, typename Tout>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kLowsCtasPerSm)
 degrade_lows_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, const Params p) {
-  const int img = blockIdx.x / p.bands;
+  const int img = blockIdx.x % p.B;
+  const int band = blockIdx.x / p.B;
   const int l = __ldg(p.lows + img) - p.low0;
   if (l < 0 || l >= p.n_lows) {
-    const int r0 = (blockIdx.x - img * p.bands) * p.rows;
-    const int len = min(p.rows, p.OH - r0) * p.OW * p.C;
-    Tout* o = out + (static_cast<size_t>(img) * p.OH + r0) * p.OW * p.C;
+    if (band != 0) return;
+    const int len = p.OH * p.OW * p.C;
+    Tout* o = out + static_cast<size_t>(img) * len;
     const float nan = __int_as_float(0x7fc00000);
     for (int i = threadIdx.x; i < len; i += kThreads) {
       float v[1] = {nan};
@@ -608,10 +643,16 @@ degrade_lows_kernel(const Tin* __restrict__ x, Tout* __restrict__ out, const Par
     }
     return;
   }
+  const int4 plan = __ldg(reinterpret_cast<const int4*>(p.plans) + l);
+  if (band * plan.x >= p.OH) return;
   Params q = p;
 #pragma unroll
   for (int k = 0; k < 4; ++k) q.op[k] = p.table[4 * l + k];
-  resample_band<Tin, Tout, true>(x, out, q);
+  q.rows = plan.x;
+  q.rows_off = plan.y;
+  q.low_off = plan.z;
+  phase_tag(l + p.low0);
+  resample_band<Tin, Tout, true>(x, out, q, img, band * plan.x);
 }
 
 // The two-pass plan of a resize. (c) over `p.rows` of the batch's B*H input
@@ -890,25 +931,54 @@ const void* lows_kernel_for(int in_dtype, int out_dtype) {
 }
 
 // The plan of a degrade with a low per image. `ops` holds four band tables
-// per low (down H, down W, up H, up W), `spans` (span, in_span) per low at
-// `rows` output rows per band. Each low must plan on its own; the buffers
-// take the largest span, input span and low-res width over the lows.
-bool make_plan_lows(int B, int C, int in_bytes, const crfr_band* ops, int n_lows, int rows,
-                    const int* spans, int limit, Plan* plan) {
-  if (n_lows <= 0 || spans == nullptr) return false;
-  int span = 0, in_span = 0, widest = 0;
+// per low (down H, down W, up H, up W), `plans` a crfr_low_plan per low and
+// `spans` (span, in_span) per low at that low's band height. The host lays
+// each low's buffers out (lows_plan); this checks only that they fit: the
+// sizes come from make_plan (the int form's plan of that low and height),
+// the offsets from the record, 16-byte aligned. The [span][W*C] buffer may
+// meet neither the staged rows nor the [span][low*C] buffer; the latter may
+// lie over the staged rows, which (a) has read before (b) writes it. The
+// launch takes the most shared memory and the most bands of any low, and
+// reports the shortest band height as its rows.
+bool make_plan_lows(int B, int C, int in_bytes, const crfr_band* ops, int n_lows,
+                    const crfr_low_plan* plans, const int* spans, int limit, Plan* plan) {
+  if (n_lows <= 0 || plans == nullptr || spans == nullptr) return false;
+  int smem = 0, bands = 0, rows = 0;
   for (int l = 0; l < n_lows; ++l) {
     const crfr_band* o = ops + 4 * l;
-    if (!make_plan(B, C, in_bytes, o, 4, rows, spans[2 * l], spans[2 * l + 1], 0x7fffffff, plan))
+    const crfr_low_plan& lp = plans[l];
+    if (!make_plan(B, C, in_bytes, o, 4, lp.rows, spans[2 * l], spans[2 * l + 1], 0x7fffffff,
+                   plan))
       return false;
+    // make_plan's layout: [staged rows + slack][span][W*C][span][low*C]
+    const Params& q = plan->p;
+    const long long staged = q.rows_off, row_buf = q.low_off - q.rows_off;
+    const long long low_buf = plan->smem / 4 - q.low_off;
+    const long long rows_end = static_cast<long long>(lp.rows_off) + row_buf;
+    const long long low_end = static_cast<long long>(lp.low_off) + low_buf;
+    const bool apart = rows_end <= lp.low_off || low_end <= lp.rows_off;
     if (o[0].n_in != ops[0].n_in || o[1].n_in != ops[1].n_in || o[2].n_out != ops[2].n_out ||
-        o[3].n_out != ops[3].n_out)
+        o[3].n_out != ops[3].n_out || q.rows != lp.rows || lp.rows_off % 4 != 0 ||
+        lp.low_off % 4 != 0 || lp.low_off < 0 || lp.rows_off < staged || !apart ||
+        std::max(rows_end, low_end) * 4 > lp.smem)
       return false;
-    span = std::max(span, spans[2 * l]);
-    in_span = std::max(in_span, spans[2 * l + 1]);
-    if (o[1].n_out > ops[4 * widest + 1].n_out) widest = l;
+    smem = std::max(smem, lp.smem);
+    if (q.bands > bands) {
+      bands = q.bands;
+      rows = lp.rows;
+    }
   }
-  return make_plan(B, C, in_bytes, ops + 4 * widest, 4, rows, span, in_span, limit, plan);
+  const long long ctas = static_cast<long long>(B) * bands;
+  if (smem > limit || ctas > 0x7fffffffLL) {
+    plan->smem = smem;
+    return false;
+  }
+  plan->p.rows = rows;
+  plan->p.bands = bands;
+  plan->p.rows_off = plan->p.low_off = 0;   // each CTA takes its low's
+  plan->smem = smem;
+  plan->ctas = static_cast<int>(ctas);
+  return true;
 }
 
 // Sets the load and store widths from the pointers, then launches `fn`.
@@ -941,7 +1011,11 @@ int report(const void* fn, bool ok, const Plan& plan, int refused_smem, int limi
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err == cudaSuccess && plan.smem > 48 * 1024)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, plan.smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[7], fn, kThreads, plan.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   info[0] = attr.numRegs;
   info[1] = static_cast<int>(attr.localSizeBytes);
@@ -1072,22 +1146,26 @@ int crfr_resample_normalize(const void* x, int in_dtype, void* out, int out_dtyp
 
 // A degrade of (B, S, S, C) with a low per image. `ops` are the host's copy
 // of 4 band tables per low for the lows low0 ... low0 + n_lows - 1 and
-// `dev_ops` the same structs in device memory; `lows` (B,) int32 on the
-// device, each image's low; `spans` (span, in_span) per low at `rows`
-// output rows per band. Otherwise as crfr_resample_normalize.
+// `dev_ops` the same structs in device memory; `plans` a crfr_low_plan per
+// low (host) and `dev_plans` the same records in device memory (16-byte
+// aligned); `spans` (span, in_span) per low at its band height; `lows` (B,)
+// int32 on the device, each image's low, never read here. Otherwise as
+// crfr_resample_normalize.
 int crfr_degrade_lows_normalize(const void* x, int in_dtype, void* out, int out_dtype, int B,
                                 int C, const crfr_band* ops, const crfr_band* dev_ops, int n_lows,
-                                int low0, const int* lows, int rows, const int* spans,
-                                void* stream) {
+                                int low0, const int* lows, const crfr_low_plan* plans,
+                                const crfr_low_plan* dev_plans, const int* spans, void* stream) {
   const void* fn = lows_kernel_for(in_dtype, out_dtype);
   int limit = 0;
   cudaError_t err = smem_limit(&limit);
   if (err != cudaSuccess) return static_cast<int>(err);
   Plan plan;
   if (fn == nullptr || x == nullptr || out == nullptr || dev_ops == nullptr || lows == nullptr ||
-      !make_plan_lows(B, C, in_dtype == 0 ? 1 : 4, ops, n_lows, rows, spans, limit, &plan))
+      dev_plans == nullptr || reinterpret_cast<uintptr_t>(dev_plans) % 16 != 0 ||
+      !make_plan_lows(B, C, in_dtype == 0 ? 1 : 4, ops, n_lows, plans, spans, limit, &plan))
     return static_cast<int>(cudaErrorInvalidValue);
   plan.p.table = dev_ops;
+  plan.p.plans = dev_plans;
   plan.p.lows = lows;
   plan.p.low0 = low0;
   plan.p.n_lows = n_lows;
@@ -1097,8 +1175,10 @@ int crfr_degrade_lows_normalize(const void* x, int in_dtype, void* out, int out_
 // What a call with these shapes launches: info[0] registers per thread,
 // [1] local-memory (spill) bytes per thread, [2] dynamic shared memory bytes,
 // [3] CTAs, [4] output rows per CTA, [5] threads per CTA, [6] the shared
-// memory a CTA may have on this device. Returns a cudaError_t; when the plan
-// exceeds that limit, cudaErrorInvalidValue with info[2] and info[6] filled.
+// memory a CTA may have on this device, [7] CTAs an SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor). Returns a cudaError_t;
+// when the plan exceeds that limit, cudaErrorInvalidValue with info[2] and
+// info[6] filled.
 int crfr_resample_info(int in_dtype, int out_dtype, int B, int C, const crfr_band* ops, int n_ops,
                        int rows, int span, int in_span, int* info) {
   const void* fn = kernel_for(in_dtype, out_dtype, n_ops == 4);
@@ -1116,9 +1196,10 @@ int crfr_resample_info(int in_dtype, int out_dtype, int B, int C, const crfr_ban
   return report(fn, ok, plan, need, limit, info);
 }
 
-// crfr_resample_info for crfr_degrade_lows_normalize's arguments.
+// crfr_resample_info for crfr_degrade_lows_normalize's arguments; info[4]
+// the shortest band height of any low (the one that sets the CTAs).
 int crfr_degrade_lows_info(int in_dtype, int out_dtype, int B, int C, const crfr_band* ops,
-                           int n_lows, int rows, const int* spans, int* info) {
+                           int n_lows, const crfr_low_plan* plans, const int* spans, int* info) {
   const void* fn = lows_kernel_for(in_dtype, out_dtype);
   int limit = 0;
   cudaError_t err = smem_limit(&limit);
@@ -1126,11 +1207,26 @@ int crfr_degrade_lows_info(int in_dtype, int out_dtype, int B, int C, const crfr
   if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   Plan plan;
   const int in_bytes = in_dtype == 0 ? 1 : 4;
-  const bool ok = make_plan_lows(B, C, in_bytes, ops, n_lows, rows, spans, limit, &plan);
+  const bool ok = make_plan_lows(B, C, in_bytes, ops, n_lows, plans, spans, limit, &plan);
   const int need = ok ? plan.smem
-      : make_plan_lows(B, C, in_bytes, ops, n_lows, rows, spans, 0x7fffffff, &plan) ? plan.smem
+      : make_plan_lows(B, C, in_bytes, ops, n_lows, plans, spans, 0x7fffffff, &plan) ? plan.smem
       : -1;
   return report(fn, ok, plan, need, limit, info);
+}
+
+// What the host plans a low per image for, on the current device: out[0]
+// the shared memory of an SM, [1] the shared memory the device reserves for
+// each CTA, [2] the most a CTA may have, [3] kLowsCtasPerSm.
+int crfr_degrade_lows_device(int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&out[1], cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (err == cudaSuccess) err = smem_limit(&out[2]);
+  out[3] = kLowsCtasPerSm;
+  return static_cast<int>(err);
 }
 
 // A resize of x (B, H, W, C) into out (B, OH, OW, C) by the two-pass plan:
@@ -1162,7 +1258,8 @@ int crfr_resize_two_pass(const void* x, int in_dtype, void* tmp, void* out, int 
 
 // crfr_resample_info for the two-pass plan: info[0] and [1] the larger of
 // the two kernels' registers and spill bytes, [2] 0, [3] the CTAs of both,
-// [4] the output rows of a cols-kernel CTA, [5] and [6] as there.
+// [4] the output rows of a cols-kernel CTA, [5] and [6] as there, [7] the
+// fewer CTAs an SM of the two kernels.
 int crfr_resize_two_pass_info(int in_dtype, int out_dtype, int B, int C, const crfr_band* ops,
                               int* info) {
   const void* fns[] = {rows_kernel_for(in_dtype), cols_kernel_for(out_dtype)};
@@ -1185,6 +1282,13 @@ int crfr_resize_two_pass_info(int in_dtype, int out_dtype, int B, int C, const c
   info[4] = tp.cols.rows;
   info[5] = kThreads;
   info[6] = limit;
+  info[7] = 0;
+  for (const void* fn : fns) {
+    int n = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    info[7] = info[7] == 0 ? n : std::min(info[7], n);
+  }
   return 0;
 }
 

@@ -25,13 +25,19 @@ and counts the kernel; importing ``crfr_torch.ops`` registers them. Eager
 calls of the public functions run the same bodies directly.
 
 ``fused_degrade_normalize`` also takes ``low`` as an int32 tensor of shape
-(B,): a low per image, as the training step draws them. The kernel then
-reads each image's low and takes that low's four band tables from a device
-table holding every low of the range ``lows`` (cached per size, range and
-mode); its plain version is the batched product with each image's composed
-operator, ``einsum('boi,bijc,bpj->bopc', W[low], x, W[low])``. Those
-launches count in ``fused_degrade_normalize.lows_launches``; ``launches``
-counts the int form's alone.
+(B,): a low per image, as the training step draws them. The host never
+reads those lows (that would synchronize every train step): it plans every
+low of the range ``lows`` once (``lows_plan``, cached per size, range,
+mode, channels and input type), each low at its own band height, the
+tallest whose buffers fit the shared memory of one of the CTAs an SM that
+the kernel is built for (two; fewer where some low fits no height in that).
+The kernel
+reads each image's low and takes that low's plan and four band tables
+from device tables; its plain version is the batched product with each
+image's composed operator, ``einsum('boi,bijc,bpj->bopc', W[low], x,
+W[low])``. Each call is one launch, counted in
+``fused_degrade_normalize.lows_launches``; ``launches`` counts the int
+form's alone.
 
 A band height is ``DEGRADE_ROWS`` (the whole image) for a degrade and
 ``RESIZE_ROWS`` for a resize where that plan fits the device's shared
@@ -83,8 +89,7 @@ TWO_PASS = 0                               # ``rows`` of a resize's two-pass pla
 # entries of the per-shape caches: a detector's crops come in hundreds of sizes
 _SHAPES = 1024
 _INFO_KEYS = ("registers", "spill_bytes", "smem_bytes", "ctas", "rows", "threads",
-              "smem_limit")
-
+              "smem_limit", "ctas_per_sm")
 
 @functools.lru_cache(maxsize=256)
 def _operators(key: tuple, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -143,11 +148,7 @@ def band_spans(key: tuple, rows: int) -> tuple[int, int]:
     """(span, in_span): the most rows one band of ``rows`` output rows reads
     through the vertical factor into the output (rows of the low-res image
     for a degrade, of the input for a resize), and the most input rows it
-    reads: the kernel's shared-memory plan. For a low per image, the
-    largest of each over the lows."""
-    if key[0] == "lows":
-        spans = [band_spans(k, rows) for k in _low_keys(key)]
-        return max(s for s, _ in spans), max(s for _, s in spans)
+    reads: the kernel's shared-memory plan."""
     factors = _factors(key)
     start, taps = band_table(*factors[2 if key[0] == "degrade" else 0])
     n = len(start)
@@ -177,6 +178,74 @@ def lows_key(s: int, lows: tuple[int, int] | None, mode: str) -> tuple:
 def _low_keys(key: tuple) -> list[tuple]:
     _, s, lo, hi, mode = key
     return [operator_key(s, s, low, mode) for low in range(lo, hi + 1)]
+
+
+def degrade_layout(key: tuple, rows: int, c: int, in_bytes: int) -> tuple[int, int, int]:
+    """Shared memory of one low of a degrade with a low per image (an
+    operator key) in bands of ``rows`` output rows, ``in_bytes`` a staged
+    input element: (rows_off, low_off, smem), the float offsets of its
+    [span][S*C] and [span][low*C] buffers and its bytes. The staged rows
+    start at 0 (with 16 bytes of slack); the [span][low*C] buffer lies over
+    them, which (a) has read before (b) writes it, and the [span][S*C]
+    buffer follows the larger of the two. The only definition of this
+    layout: the kernel's host code checks that it fits."""
+    _, _, w, low, _ = key
+    span, in_span = band_spans(key, rows)
+    rows_off = max(-(-(in_span * w * c * in_bytes + 16) // 16) * 4, -(-span * low * c // 4) * 4)
+    return rows_off, 0, 4 * (rows_off + span * w * c)
+
+
+def lows_budget(device_smem: tuple[int, int, int], ctas: int) -> int:
+    """The shared memory each of ``ctas`` CTAs an SM may take; ``device_smem``
+    is (an SM's, what the device reserves for each CTA, the most one CTA may
+    have), in bytes."""
+    sm, reserved, per_cta = device_smem
+    return min(per_cta, sm // ctas - reserved)
+
+
+@functools.lru_cache(maxsize=64)
+def lows_plan(key: tuple, c: int, in_bytes: int, device_smem: tuple[int, int, int],
+              ctas_per_sm: int, rows: int | None = None) -> dict:
+    """The plan of a degrade with a low per image (a lows key), ``c``
+    channels of ``in_bytes`` bytes, on a device of ``device_smem``
+    (``lows_budget``) for a kernel built for ``ctas_per_sm`` CTAs an SM.
+    Each low takes the tallest band height of S, then ``_SHORTER_ROWS``,
+    whose buffers (``degrade_layout``) fit ``lows_budget(device_smem, n)``,
+    for the most CTAs an SM n <= ``ctas_per_sm`` at which every low fits a
+    height: uint8 at 112²x3 plans two, float32 pil at 112²x3 one (at low 8 a
+    row of output reads ~100 input rows, 134 KB). Raises ValueError where a
+    low fits no height at one CTA an SM. With ``rows``, every low takes that
+    height (the launch checks the device's limit). → ``rows`` per low,
+    ``records`` (the kernel's crfr_low_plan per low: rows, rows_off,
+    low_off, smem; int32), ``spans`` ((span, in_span) per low at its height,
+    int32), ``smem`` and ``bands`` (the most of any low: the launch's), and
+    ``budget`` (None with ``rows``)."""
+    s = key[1]
+    keys = _low_keys(key)
+    heights = (s, *(r for r in _SHORTER_ROWS if r < s))
+    budget = None
+    if rows is not None:
+        picks = [min(rows, s)] * len(keys)
+    else:
+        for n in range(ctas_per_sm, 0, -1):
+            budget = lows_budget(device_smem, n)
+            picks = [next((r for r in heights
+                           if degrade_layout(k, r, c, in_bytes)[2] <= budget), None)
+                     for k in keys]
+            if None not in picks:
+                break
+        else:
+            raise ValueError(f"a low per image: low {key[2] + picks.index(None)} of "
+                             f"{s}x{s}x{c} ({in_bytes}-byte input) fits no band height "
+                             f"in the {budget} bytes of shared memory a CTA may have")
+    layouts = [degrade_layout(k, r, c, in_bytes) for k, r in zip(keys, picks)]
+    rec = np.asarray([(r, *lay) for r, lay in zip(picks, layouts)], np.int32)
+    rec.flags.writeable = False
+    spans = np.asarray([band_spans(k, r) for k, r in zip(keys, picks)], np.int32)
+    spans.flags.writeable = False
+    return {"rows": tuple(picks), "records": rec, "spans": spans,
+            "smem": max(lay[2] for lay in layouts), "bands": max(-(-s // r) for r in picks),
+            "budget": budget}
 
 
 class _Band(ctypes.Structure):
@@ -217,26 +286,40 @@ def _lows_bands(key: tuple, device: torch.device) -> tuple[ctypes.Array, torch.T
     return arr, dev, tuple(per_low)
 
 
+@functools.lru_cache(maxsize=16)
+def _lows_device(device: torch.device) -> tuple[tuple[int, int, int], int]:
+    """``lows_plan``'s device_smem and ctas_per_sm for ``device``, from the
+    device's attributes and the kernel's own constant."""
+    lib = _build.load_library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        _build.check(lib, lib.crfr_degrade_lows_device(ctypes.addressof(out)),
+                     "crfr_degrade_lows_device")
+    return (out[0], out[1], out[2]), out[3]
+
+
 @functools.lru_cache(maxsize=64)
-def _lows_spans(key: tuple, rows: int) -> ctypes.Array:
-    """(span, in_span) of each low of a lows key, as the kernel takes them."""
-    spans = [v for k in _low_keys(key) for v in band_spans(k, rows)]
-    return (ctypes.c_int * len(spans))(*spans)
+def _lows_records(key: tuple, c: int, in_bytes: int, rows: int | None,
+                  device: torch.device) -> tuple[dict, torch.Tensor]:
+    """``lows_plan`` on ``device``, and its records there (the table the
+    kernel indexes by low)."""
+    plan = lows_plan(key, c, in_bytes, *_lows_device(device), rows)
+    return plan, torch.from_numpy(plan["records"].copy()).to(device)
 
 
-def _info(lib, key: tuple, b: int, c: int, in_code: int, out_code: int, rows: int,
+def _info(lib, key: tuple, b: int, c: int, in_code: int, out_code: int, rows: int | None,
           device: torch.device) -> tuple[int, dict]:
     info = (ctypes.c_int * len(_INFO_KEYS))()
-    if rows == TWO_PASS:
+    if key[0] == "lows":
+        arr, _, _ = _lows_bands(key, device)
+        plan, _ = _lows_records(key, c, 1 if in_code == 0 else 4, rows, device)
+        err = lib.crfr_degrade_lows_info(in_code, out_code, b, c, ctypes.addressof(arr),
+                                         len(arr) // 4, plan["records"].ctypes.data,
+                                         plan["spans"].ctypes.data, ctypes.addressof(info))
+    elif rows == TWO_PASS:
         arr, _ = _bands(key, device)
         err = lib.crfr_resize_two_pass_info(in_code, out_code, b, c, ctypes.addressof(arr),
                                             ctypes.addressof(info))
-    elif key[0] == "lows":
-        arr, _, _ = _lows_bands(key, device)
-        err = lib.crfr_degrade_lows_info(in_code, out_code, b, c, ctypes.addressof(arr),
-                                         len(arr) // 4, rows,
-                                         ctypes.addressof(_lows_spans(key, rows)),
-                                         ctypes.addressof(info))
     else:
         arr, _ = _bands(key, device)
         err = lib.crfr_resample_info(in_code, out_code, b, c, ctypes.addressof(arr), len(arr),
@@ -245,12 +328,16 @@ def _info(lib, key: tuple, b: int, c: int, in_code: int, out_code: int, rows: in
 
 
 @functools.lru_cache(maxsize=_SHAPES)
-def _fit_rows(key: tuple, c: int, in_code: int, out_code: int, device: torch.device) -> int:
+def _fit_rows(key: tuple, c: int, in_code: int, out_code: int,
+              device: torch.device) -> int | None:
     """The default band height: ``RESIZE_ROWS`` for a resize, ``DEGRADE_ROWS``
     for a degrade, or the tallest of ``_SHORTER_ROWS`` below it whose plan
     fits the device's shared memory. When none does, ``TWO_PASS`` for a
     resize, and for a degrade ``DEGRADE_ROWS`` again, so that the launch
-    raises with its size."""
+    raises with its size. None for a low per image: each low takes its own
+    (``lows_plan``)."""
+    if key[0] == "lows":
+        return None
     first = RESIZE_ROWS if key[0] == "resize" else DEGRADE_ROWS
     lib = _build.load_library()
     with torch.cuda.device(device):
@@ -276,8 +363,9 @@ def _check_plan(key: tuple, c: int, in_code: int, out_code: int, rows: int,
                          f"beyond the two-pass plan's int offsets")
     if err != 0 and not 0 <= info["smem_bytes"] <= info["smem_limit"]:
         size = f"{key[1]}x{key[1]}" if key[0] == "lows" else f"{key[1]}x{key[2]}"
+        bands = "each low's bands" if rows is None else f"bands of {rows} rows"
         raise ValueError(f"{what}: {info['smem_bytes']} bytes of shared memory for "
-                         f"{size}x{c} in bands of {rows} rows exceed the "
+                         f"{size}x{c} in {bands} exceed the "
                          f"kernel's limit of {info['smem_limit']}")
     _build.check(lib, err, what)
 
@@ -290,14 +378,20 @@ def resample_info(shape: tuple[int, int, int, int], arg, mode: str = "pil",
     CUDA device: its ``plan`` ("bands", or "two_pass" for a resize that fits
     no band height), registers and local-memory (spill) bytes per thread as
     compiled, dynamic shared memory, CTAs, output rows per CTA, threads per
-    CTA, the device's shared-memory limit per CTA, and ``span`` and
-    ``in_span`` (``band_spans``; None for the two-pass plan, which also
-    reports its float32 ``scratch_bytes``). ``arg`` is ``low`` (a
-    degrade), a tensor of lows (a degrade with a low per image in the range
-    ``lows``) or ``out_hw`` (a resize). ``rows`` defaults to the height a
-    call takes; ``TWO_PASS`` asks for the two-pass plan. The two-pass
-    plan's registers and spills are the larger of its two kernels', its
-    CTAs those of both, its rows those of a vertical-pass CTA."""
+    CTA, the device's shared-memory limit per CTA, the CTAs an SM holds at
+    once (``ctas_per_sm``), and ``span`` and ``in_span`` (``band_spans``;
+    None for the two-pass plan, which also reports its float32
+    ``scratch_bytes``). ``arg`` is ``low`` (a degrade), a tensor of lows (a
+    degrade with a low per image in the range ``lows``) or ``out_hw`` (a
+    resize). ``rows`` defaults to the height a call takes; ``TWO_PASS`` asks
+    for the two-pass plan. The two-pass plan's registers and spills are the
+    larger of its two kernels', its CTAs those of both, its rows those of a
+    vertical-pass CTA. A low per image reports ``lows_plan``'s: the band
+    height of each low (``rows_by_low``), the most bands of any low and the
+    budget each low's shared memory fit; ``rows`` is the
+    shortest height, CTAs are B times the most bands (band-major; a CTA past
+    its low's bands returns at once), and ``span``/``in_span`` are None (each
+    low has its own)."""
     b, h, w, c = shape
     key = lows_key(h, lows, mode) if isinstance(arg, torch.Tensor) else operator_key(h, w, arg, mode)
     lib = _build.load_library()
@@ -306,14 +400,16 @@ def resample_info(shape: tuple[int, int, int, int], arg, mode: str = "pil",
     rows = _fit_rows(key, c, in_code, out_code, device) if rows is None else rows
     err, info = _info(lib, key, b, c, in_code, out_code, rows, device)
     _build.check(lib, err, "resample_info")
+    if key[0] == "lows":
+        plan, _ = _lows_records(key, c, 1 if in_code == 0 else 4, rows, device)
+        return {**info, "plan": "bands", "span": None, "in_span": None,
+                "lows": [key[2], key[3]], "rows_by_low": list(plan["rows"]),
+                "bands": plan["bands"], "smem_budget": plan["budget"]}
     if rows == TWO_PASS:
         return {**info, "plan": "two_pass", "span": None, "in_span": None,
                 "scratch_bytes": 4 * b * h * key[4] * c}
     span, in_span = band_spans(key, rows)
-    out = {**info, "plan": "bands", "span": span, "in_span": in_span}
-    if key[0] == "lows":
-        out["lows"] = [key[2], key[3]]
-    return out
+    return {**info, "plan": "bands", "span": span, "in_span": in_span}
 
 
 def _check_input(x: torch.Tensor) -> None:
@@ -346,7 +442,8 @@ def _launch(x: torch.Tensor, key: tuple, oh: int, ow: int, out_dtype: torch.dtyp
             what: str, rows: int | None = None, low: torch.Tensor | None = None) -> torch.Tensor:
     """One launch on ``x``, in bands of ``rows`` output rows (the default
     plan when None; ``TWO_PASS`` for a resize's two-pass plan); ``low`` the
-    (B,) int32 lows of a lows key."""
+    (B,) int32 lows of a lows key, whose ``rows`` gives every low that
+    height (None: each its own)."""
     _check_launch(x, out_dtype, what)
     b, h, w, c = x.shape
     in_code, out_code = _IN_CODES[x.dtype], _OUT_CODES[out_dtype]
@@ -364,10 +461,12 @@ def _launch(x: torch.Tensor, key: tuple, oh: int, ow: int, out_dtype: torch.dtyp
                                            ctypes.addressof(arr), stream)
         elif key[0] == "lows":
             arr, dev, _ = _lows_bands(key, x.device)
+            plan, dev_rec = _lows_records(key, c, x.element_size(), rows, x.device)
             err = lib.crfr_degrade_lows_normalize(
                 x.data_ptr(), in_code, out.data_ptr(), out_code, b, c, ctypes.addressof(arr),
-                dev.data_ptr(), len(arr) // 4, key[2], low.data_ptr(), rows,
-                ctypes.addressof(_lows_spans(key, rows)), stream)
+                dev.data_ptr(), len(arr) // 4, key[2], low.data_ptr(),
+                plan["records"].ctypes.data, dev_rec.data_ptr(), plan["spans"].ctypes.data,
+                stream)
         else:
             arr, _ = _bands(key, x.device)
             err = lib.crfr_resample_normalize(

@@ -228,18 +228,128 @@ def test_per_image_lows_refuse_bad_arguments(rng):
     assert torch.isfinite(full.float()).all()
 
 
-def test_lows_plan_takes_the_largest_over_the_lows():
-    """The shared-memory plan of the tensor form: ``band_spans`` the largest
-    over the lows at every band height, and the band structs of every low
-    in one table, four a low, in order."""
-    key = port.lows_key(112, (8, 112), "pil")
-    for rows in (112, 56, 28):
-        spans = [port.band_spans(port.operator_key(112, 112, low, "pil"), rows)
-                 for low in range(8, 113)]
-        assert port.band_spans(key, rows) == (max(s for s, _ in spans), max(s for _, s in spans))
+# an H100's shared memory: an SM's, reserved for each CTA, the most a CTA
+# may have (cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+# ReservedSharedMemoryPerBlock, MaxSharedMemoryPerBlockOptin)
+H100_SMEM = (233_472, 1_024, 232_448)
+
+
+def test_lows_plan_takes_the_largest_over_the_lows(monkeypatch):
+    """The plan of the tensor form: the budget of the most CTAs an SM (at
+    most the kernel's two) at which every low fits a band height; each low
+    at the tallest height (S, 56, 28, ...) whose buffers fit that budget;
+    each low's bands cover S; the launch takes the largest of the lows'
+    shared memory and the most bands; the kernel's records and spans are
+    each low's own layout; and the band structs of every low in one table,
+    four a low, in order."""
+    heights = (112, 56, 28, 16, 8, 4, 2, 1)
+    assert [port.lows_budget(H100_SMEM, n) for n in (1, 2, 3)] == [232_448, 115_712, 76_800]
+    for mode in ("pil", "cv2"):
+        key = port.lows_key(112, (8, 112), mode)
+        for in_bytes in (1, 4):
+            plan = port.lows_plan(key, 3, in_bytes, H100_SMEM, 2)
+            budget = plan["budget"]
+            sizes = []
+            for i, (low, rows) in enumerate(zip(range(8, 113), plan["rows"])):
+                k = port.operator_key(112, 112, low, mode)
+
+                def size(r, k=k):
+                    return port.degrade_layout(k, r, 3, in_bytes)[2]
+
+                assert size(rows) <= budget
+                assert all(size(r) > budget for r in heights if r > rows), (mode, low)
+                bands = -(-112 // rows)
+                assert (bands - 1) * rows < 112 <= bands * rows
+                rows_off, low_off, smem = port.degrade_layout(k, rows, 3, in_bytes)
+                assert plan["records"][i].tolist() == [rows, rows_off, low_off, smem]
+                assert tuple(plan["spans"][i]) == port.band_spans(k, rows)
+                sizes.append(size(rows))
+            assert plan["smem"] == max(sizes)
+            assert plan["bands"] == max(-(-112 // r) for r in plan["rows"])
+            if budget < port.lows_budget(H100_SMEM, 1):
+                continue
+            # one CTA an SM: some low fits no height in half an SM
+            assert any(all(port.degrade_layout(port.operator_key(112, 112, low, mode), r, 3,
+                                               in_bytes)[2] > port.lows_budget(H100_SMEM, 2)
+                           for r in heights) for low in range(8, 113))
+        # uint8: two CTAs an SM, whole images up to low 57, then 56 and 28 rows
+        u8 = port.lows_plan(key, 3, 1, H100_SMEM, 2)
+        assert u8["budget"] == port.lows_budget(H100_SMEM, 2)
+        assert u8["rows"] == (112,) * 50 + (56,) * 34 + (28,) * 21
+    # float32 pil: an output row of low 8 reads ~100 input rows of 1,344 bytes,
+    # more than half an SM at any height, so one CTA an SM: whole images up to
+    # low 60, then 56 rows
+    f32 = port.lows_plan(port.lows_key(112, (8, 112), "pil"), 3, 4, H100_SMEM, 2)
+    assert f32["budget"] == port.lows_budget(H100_SMEM, 1)
+    assert f32["rows"] == (112,) * 53 + (56,) * 52
+    # low 16, uint8, whole images: 112 staged rows of 336 bytes and 16 of slack
+    # (9,412 floats), under them [16][16*3] (768), then [16][112*3] (5,376)
+    assert port.degrade_layout(port.operator_key(112, 112, 16, "pil"), 112, 3, 1) == (
+        9412, 0, 4 * (9412 + 5376))
+    # low 112 (the identity, one tap) in bands of 28: [28][112*3] over the 28
+    # staged rows (2,356 floats), then [28][112*3]
+    assert port.degrade_layout(port.operator_key(112, 112, 112, "pil"), 28, 3, 1) == (
+        28 * 336, 0, 4 * 2 * 28 * 336)
     import ctypes
 
     arr, dev, _ = port._lows_bands(port.lows_key(32, (8, 12), "cv2"), torch.device("cpu"))
     assert len(arr) == 4 * 5 and dev.numel() == 4 * 5 * ctypes.sizeof(port._Band)
     assert [arr[4 * i + 1].n_out for i in range(5)] == [8, 9, 10, 11, 12]
     assert [arr[4 * i + 2].n_in for i in range(5)] == [8, 9, 10, 11, 12]
+    # the wrapper plans with the device's sizes and the kernel's CTAs an SM
+    monkeypatch.setattr(port, "_lows_device", lambda device: (H100_SMEM, 2))
+    port._lows_records.cache_clear()
+    plan, dev_rec = port._lows_records(port.lows_key(32, (8, 12), "cv2"), 1, 4, None,
+                                       torch.device("cpu"))
+    port._lows_records.cache_clear()
+    rec = plan["records"]
+    assert dev_rec.dtype == torch.int32 and dev_rec.tolist() == rec.tolist()
+    assert rec.shape == (5, 4) and plan["spans"].shape == (5, 2) and (rec[:, 0] == 32).all()
+
+
+@pytest.mark.parametrize("mode", ["pil", "cv2"])
+@pytest.mark.parametrize("in_bytes", [1, 4])
+def test_lows_plan_gives_two_ctas_an_sm(mode, in_bytes):
+    """The budget leaves two CTAs an SM for every low, uint8 in and float32
+    cv2 in: the launch's shared memory (the largest low's) and the 1 KB an
+    SM reserves for each CTA, twice, within the SM's 228 KB. Float32 pil
+    in plans one CTA an SM (its lows 8-10 fit no height in half an SM) and
+    then fits the most a CTA may have. A uniform height gives the lows one
+    layout each and no more than the plan of old (one layout for all, sized
+    by the largest span, input span and width)."""
+    key = port.lows_key(112, (8, 112), mode)
+    plan = port.lows_plan(key, 3, in_bytes, H100_SMEM, 2)
+    ctas = 1 if (mode, in_bytes) == ("pil", 4) else 2
+    sm, reserved, per_cta = H100_SMEM
+    assert plan["budget"] == port.lows_budget(H100_SMEM, ctas)
+    assert ctas * (plan["smem"] + reserved) <= sm and plan["smem"] <= per_cta
+    assert plan["bands"] <= 7 and min(plan["rows"]) >= 16
+    rows = 56 if in_bytes == 1 else 28          # the plan of old, read on the card
+    old = {("pil", 1): 188512, ("pil", 4): 224464, ("cv2", 1): 178096,
+           ("cv2", 4): 182800}[mode, in_bytes]
+    uniform = port.lows_plan(key, 3, in_bytes, H100_SMEM, 2, rows)
+    assert uniform["smem"] <= old and uniform["budget"] is None
+    assert uniform["rows"] == (rows,) * 105
+
+
+@pytest.mark.parametrize("s, c, in_bytes, ctas", [(128, 1, 1, 2), (128, 3, 4, 1), (96, 3, 1, 2),
+                                                   (64, 3, 4, 2)])
+def test_lows_plan_at_other_sizes(s, c, in_bytes, ctas):
+    """Sizes other than 112²x3: the plan takes the most CTAs an SM at which
+    every low fits, and each low its tallest height in that budget."""
+    key = port.lows_key(s, (8, s), "pil")
+    plan = port.lows_plan(key, c, in_bytes, H100_SMEM, 2)
+    assert plan["budget"] == port.lows_budget(H100_SMEM, ctas)
+    assert plan["smem"] <= plan["budget"] and len(plan["rows"]) == s - 7
+    for low, rows in zip(range(8, s + 1), plan["rows"]):
+        k = port.operator_key(s, s, low, "pil")
+        assert port.degrade_layout(k, rows, c, in_bytes)[2] <= plan["budget"]
+        taller = [r for r in (s, 56, 28, 16, 8, 4, 2, 1) if rows < r <= s]
+        assert all(port.degrade_layout(k, r, c, in_bytes)[2] > plan["budget"] for r in taller)
+
+
+def test_lows_plan_refuses_a_size_no_height_fits():
+    """A low that fits no band height in the most a CTA may have raises,
+    naming the low, rather than plan a launch the kernel would refuse."""
+    with pytest.raises(ValueError, match="low 8 of 512x512x3 .* fits no band height"):
+        port.lows_plan(port.lows_key(512, (8, 9), "pil"), 3, 4, H100_SMEM, 2)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card: the
-preprocessing kernel (with an int low, a low per image, or a resize, the
-SR probe's ↓ among them), ``bank_tilemax`` with the fused gallery path,
+preprocessing kernel (with an int low, a low per image at its plan's
+extremes and in a call that does not synchronize, or a resize, the SR
+probe's ↓ among them), ``bank_tilemax`` with the fused gallery path,
 and the one launch of the preprocessing kernel in a train step, an SR
 train step, a hallucinated extract batch, and a residual-KD step on each
 input path (a fixed low, a low per batch, a low per image, a frozen G, G
@@ -309,21 +310,60 @@ def test_lows_kernel_never_takes_the_plain_version(cuda, monkeypatch):
 
 
 def test_lows_launch_plan(cuda):
-    """The plan for lows 8-112: the tallest band height that fits, buffers
-    for the largest low, within the device's shared memory."""
+    """The plan for lows 8-112: each low at its own band height
+    (``lows_plan`` with the device's shared memory and the kernel's CTAs an
+    SM), B times the most bands of any low in CTAs, as many CTAs an SM by
+    the occupancy API as the budget planned (two for uint8 in, one for
+    float32 pil in), within the device's shared memory; the kernel takes
+    every low's records as the host laid them out."""
     lows = _lows(512, "random", cuda)
+    device_smem, ctas_per_sm = fp._lows_device(torch.device(cuda))
+    assert ctas_per_sm == 2
     for in_dtype, out_dtype in ((torch.uint8, torch.bfloat16), (torch.float32, torch.float32)):
-        info = fp.resample_info((512, 112, 112, 3), lows, "pil", in_dtype, out_dtype,
-                                lows=(8, 112))
-        assert info["lows"] == [8, 112] and 0 < info["smem_bytes"] <= info["smem_limit"]
-        assert info["ctas"] == 512 * -(-112 // info["rows"])
-        assert (info["span"], info["in_span"]) == fp.band_spans(fp.lows_key(112, (8, 112), "pil"),
-                                                                info["rows"])
-        taller = [r for r in (112, 56, 28, 16) if r > info["rows"]]
-        for r in taller:
-            with pytest.raises(RuntimeError, match="CUDA error"):
-                fp.resample_info((512, 112, 112, 3), lows, "pil", in_dtype, out_dtype, rows=r,
-                                 lows=(8, 112))
+        for mode in ("pil", "cv2"):
+            info = fp.resample_info((512, 112, 112, 3), lows, mode, in_dtype, out_dtype,
+                                    lows=(8, 112))
+            plan = fp.lows_plan(fp.lows_key(112, (8, 112), mode), 3,
+                                1 if in_dtype == torch.uint8 else 4, device_smem, ctas_per_sm)
+            planned = 1 if (mode, in_dtype) == ("pil", torch.float32) else 2
+            assert plan["budget"] == fp.lows_budget(device_smem, planned)
+            assert info["lows"] == [8, 112] and info["rows_by_low"] == list(plan["rows"])
+            assert info["smem_bytes"] == plan["smem"] <= info["smem_budget"] == plan["budget"]
+            assert info["ctas"] == 512 * plan["bands"] and info["bands"] == plan["bands"]
+            assert info["rows"] == min(plan["rows"]) and info["ctas_per_sm"] >= planned
+            # every low at one height: the layout each low takes, larger
+            one = fp.resample_info((512, 112, 112, 3), lows, mode, in_dtype, out_dtype, rows=28,
+                                   lows=(8, 112))
+            assert one["rows_by_low"] == [28] * 105 and one["ctas"] == 512 * 4
+
+
+@pytest.mark.parametrize("pattern", ["all112", "halves"])
+@pytest.mark.parametrize("in_dtype,out_dtype,atol", [(torch.uint8, torch.bfloat16, 2e-2),
+                                                     (torch.float32, torch.float32, 1e-4)])
+def test_lows_plan_extremes(cuda, in_dtype, out_dtype, atol, pattern):
+    """B=512 at the plan's extremes: every low 112 (bands of 28 rows, every
+    CTA at work), and half at 8 (whole images) and half at 112,
+    interleaved."""
+    x = _pixels((512, 112, 112, 3), in_dtype, cuda, seed=5)
+    lows = (torch.full((512,), 112, dtype=torch.int32, device=cuda) if pattern == "all112"
+            else torch.tensor([8, 112] * 256, dtype=torch.int32, device=cuda))
+    _check_lows(x, lows, "pil", out_dtype, atol)
+
+
+def test_lows_kernel_does_not_synchronize(cuda):
+    """A call with lows on the card (after the first, which fills the
+    plan's caches) neither reads them back nor waits on the card."""
+    x = _pixels((512, 112, 112, 3), torch.uint8, cuda)
+    lows = _lows(512, "random", cuda, seed=3)
+    want = fp.fused_degrade_normalize(x, lows, "pil", torch.bfloat16, lows=(8, 112))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fp.fused_degrade_normalize(x, lows, "pil", torch.bfloat16, lows=(8, 112))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_train_step_launches_the_kernel_once(cuda):
