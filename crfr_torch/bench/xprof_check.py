@@ -61,6 +61,7 @@ from crfr_torch.bench.roofline import (group_bounds, ir_layer_bounds, summarize,
                                        train_step_bounds)
 from crfr_torch.bench.throughput import build_embed_pipeline
 from crfr_torch.device import resolve_device
+from crfr_torch.utils.profiling import union_length as _busy_us
 
 # kernel group ← substrings of the kernel's name, tried in this order
 _GROUPS = (
@@ -120,31 +121,30 @@ def _group(name: str, groups=_GROUPS) -> str:
     return "other"
 
 
-def _busy_us(intervals: list[tuple[float, float]]) -> float:
-    """Length of the union of [start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total
-
-
 def _card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def _span_groups(events: list[dict], kernels: list[dict], span_groups: dict) -> list:
-    """Each kernel's group from the profiler range (``record_function``,
-    named in ``span_groups``) around the runtime call that launched it, or
-    None outside every such range."""
+def _span_groups(events: list[dict], kernels: list[dict], span_groups: dict,
+                 cat: str = "user_annotation") -> list:
+    """Each kernel's group from the innermost range of category ``cat``
+    (``user_annotation``: a ``record_function``; ``crfr_span``: the program's
+    span log merged by ``utils.profiling.span_events``), named in
+    ``span_groups``, around the runtime call that launched it, or None
+    outside every such range. Ranges nest or are apart."""
     import bisect
 
     spans = sorted((e["ts"], e["ts"] + e["dur"], span_groups[e["name"]]) for e in events
-                   if e.get("cat") == "user_annotation" and e.get("name") in span_groups)
+                   if e.get("cat") == cat and e.get("name") in span_groups)
     starts = [sp[0] for sp in spans]
+    up, open_ = [], []                  # each range's enclosing range (-1: none)
+    for i, (s, _, _) in enumerate(spans):
+        while open_ and spans[open_[-1]][1] < s:
+            open_.pop()
+        up.append(open_[-1] if open_ else -1)
+        open_.append(i)
     launched = {e["args"]["correlation"]: e["ts"] for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
                 and "correlation" in e.get("args", {})}
@@ -152,7 +152,9 @@ def _span_groups(events: list[dict], kernels: list[dict], span_groups: dict) -> 
     for k in kernels:
         ts = launched.get(k.get("args", {}).get("correlation"))
         i = bisect.bisect_right(starts, ts) - 1 if ts is not None else -1
-        out.append(spans[i][2] if i >= 0 and ts <= spans[i][1] else None)
+        while i >= 0 and ts > spans[i][1]:
+            i = up[i]
+        out.append(spans[i][2] if i >= 0 else None)
     return out
 
 

@@ -23,6 +23,7 @@ from crfr_torch.device import mesh_world, resolve_device
 from crfr_torch.ops.fused_preprocess import fused_degrade_normalize, fused_resize_normalize
 from crfr_torch.ops.normalize import normalize
 from crfr_torch.parallel.mesh import all_gather_rows, maybe_shard_batch
+from crfr_torch.utils.profiling import annotate
 
 
 def make_extract_fn(backbone_apply: Callable, degrade_to: int | None = None,
@@ -49,6 +50,10 @@ def make_extract_fn(backbone_apply: Callable, degrade_to: int | None = None,
     rows (one preprocessing launch on its slice) and an all-gather
     rebuilding the batch on every rank; another batch is embedded whole on
     every rank, as ``crfr`` replicates it.
+
+    While a profiler runs, each call is the span ``embed.call`` (rows: the
+    batch; device-timed) over the ``detail`` spans ``embed.preprocess`` and
+    ``embed.backbone`` (``utils.profiling``).
     """
     if sr_apply is not None and degrade_to is None:
         raise ValueError("sr_apply needs degrade_to (the LR size)")
@@ -70,26 +75,31 @@ def make_extract_fn(backbone_apply: Callable, degrade_to: int | None = None,
         shape = tuple(images.shape)
         if len(shape) != 4 or shape[1:] != (image_size, image_size, 3):
             raise ValueError(f"expected (B, {image_size}, {image_size}, 3), got {shape}")
-        split = False
-        if world > 1:
-            images, split = maybe_shard_batch(mesh, images)
-        emb = embed(torch.as_tensor(images).to(dev))
-        return all_gather_rows(emb, None) if split else emb
+        with annotate("embed.call", dev, rows=shape[0]):
+            split = False
+            if world > 1:
+                images, split = maybe_shard_batch(mesh, images)
+            emb = embed(torch.as_tensor(images).to(dev))
+            return all_gather_rows(emb, None) if split else emb
 
     def embed(x: torch.Tensor) -> torch.Tensor:
+        with annotate("embed.preprocess", dev, detail=True):
+            if sr_apply is not None:
+                x = fused_resize_normalize(x.contiguous(), (degrade_to, degrade_to),
+                                           resize_mode, out_dtype=torch.float32)
+            elif degrade_to is not None:
+                x = fused_degrade_normalize(x.contiguous(), degrade_to, resize_mode,
+                                            out_dtype=torch.float32)
+            else:
+                x = normalize(x)
         if sr_apply is not None:
-            x = sr_apply(fused_resize_normalize(x.contiguous(), (degrade_to, degrade_to),
-                                                resize_mode, out_dtype=torch.float32))
-        elif degrade_to is not None:
-            x = fused_degrade_normalize(x.contiguous(), degrade_to, resize_mode,
-                                        out_dtype=torch.float32)
-        else:
-            x = normalize(x)
-        state = get_state()
-        emb = apply(state, x)
-        if flip:
-            emb_f = apply(state, x.flip(dims=[2]))           # NHWC width axis
-            emb = emb + emb_f if flip_fusion == "sum" else torch.cat([emb, emb_f], dim=-1)
+            x = sr_apply(x)
+        with annotate("embed.backbone", dev, detail=True):
+            state = get_state()
+            emb = apply(state, x)
+            if flip:
+                emb_f = apply(state, x.flip(dims=[2]))           # NHWC width axis
+                emb = emb + emb_f if flip_fusion == "sum" else torch.cat([emb, emb_f], dim=-1)
         return emb
 
     return f

@@ -38,7 +38,6 @@ Usage::
 
 from __future__ import annotations
 
-import contextlib
 import copy
 from typing import Callable, Iterable
 
@@ -46,20 +45,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from crfr_torch.utils.profiling import annotate
+
 _MIN_ROWS = 17           # torch._int_mm on CUDA: more than 16 rows
 _ALIGN = 8               # ... and K and N multiples of 8
 
 
 def _ceil(n: int, m: int) -> int:
     return -(-n // m) * m
-
-
-def _span(name: str):
-    """A named range in a profiler trace (``bench.xprof_check`` groups the
-    int8 conv's kernels by it); nothing while no profiler runs."""
-    if torch.autograd.profiler._is_profiler_enabled:
-        return torch.profiler.record_function(name)
-    return contextlib.nullcontext()
 
 
 def int8_matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -185,13 +178,13 @@ class QuantConv(nn.Module):
     def int_sums(self, x: torch.Tensor) -> tuple[torch.Tensor, tuple[int, int, int]]:
         """(the (B·Ho·Wo, O) int32 sums of the quantized input with ``w8``,
         (B, Ho, Wo)) for an NCHW ``x``."""
-        with _span("quant::quantize"):
+        with annotate("quant::quantize"):
             xq = torch.round(x.float() / self.sx).clamp_(-127, 127).to(torch.int8)
-        with _span("quant::gather"):
+        with annotate("quant::gather"):
             patches, shape = gather_patches(xq.permute(0, 2, 3, 1), self.kernel_size,
                                             self.stride, self.padding, self.dilation,
                                             self.wmat.shape[1])
-        with _span("quant::int_mm"):
+        with annotate("quant::int_mm"):
             acc = int8_matmul(patches, self.wmat)
         return acc[:, :self.w8.shape[0]], shape
 
@@ -200,7 +193,7 @@ class QuantConv(nn.Module):
         out_dtype = (torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev)
                      else self.out_dtype)
         acc, (b, ho, wo) = self.int_sums(x)
-        with _span("quant::epilogue"):
+        with annotate("quant::epilogue"):
             y = acc.view(b, ho, wo, -1) * (self.sx * self.sw)        # int32 · f32 → f32
             if self.bias is not None:
                 y = y + self.bias

@@ -67,6 +67,7 @@ from crfr_torch.parallel import mesh as pmesh
 from crfr_torch.ops.fused_preprocess import fused_degrade_normalize
 from crfr_torch.ops.normalize import normalize
 from crfr_torch.utils.logging import MetricsWriter
+from crfr_torch.utils.profiling import annotate, begin, end
 
 
 def lr_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], float]:
@@ -438,7 +439,19 @@ class Trainer:
         On a mesh the batch is global and each rank keeps its rows, or with
         ``local`` it is this rank's slab of a global batch of world·b rows;
         ``lows`` are always the global batch's. The metrics are the global
-        batch's, the same on every rank."""
+        batch's, the same on every rank.
+
+        While a profiler runs, the step is the span ``train.step`` (call id
+        ``host_step``, rows this rank's), over ``train.preprocess``,
+        ``train.backbone``, ``train.head``, ``train.head_backward``,
+        ``train.backward`` and ``train.optimizer`` (``utils.profiling``);
+        the head's two and the optimizer's are device-timed, the others are
+        ``detail`` spans."""
+        rows = len(labels) if local else len(labels) // self.world
+        with annotate("train.step", self.device, call=self.host_step, rows=rows, detail=True):
+            return self._step(images, labels, lows, local)
+
+    def _step(self, images, labels, lows, local: bool) -> dict[str, torch.Tensor]:
         step = self.host_step
         gen = self._generator(step)
         if not local:
@@ -448,13 +461,16 @@ class Trainer:
         t = None                        # the teacher first: its transients go before the graph
         if self._teacher_fn is not None and self.cfg.loss.distill_weight > 0:
             t = self._teacher_fn(normalize(raw))
-        x = self._student_input(raw, gen, lows)
+        with annotate("train.preprocess", self.device, detail=True):
+            x = self._student_input(raw, gen, lows)
         y = _as_tensor(labels, self.device).long()
         self.model.train()
-        with torch.autocast(self.device.type, dtype=torch.bfloat16,
-                            enabled=self.compute_dtype == torch.bfloat16):
+        with annotate("train.backbone", self.device, detail=True), torch.autocast(
+                self.device.type, dtype=torch.bfloat16,
+                enabled=self.compute_dtype == torch.bfloat16):
             emb = self.model.backbone(x, generator=gen)
-        ce = self._loss(emb, y)
+        with annotate("train.head", self.device):
+            ce = self._loss(emb, y)
         terms = self._extra_terms(raw, x, emb, t)
         if self.world > 1:              # each rank's share of the global mean
             terms = {k: v / self.world for k, v in terms.items()}
@@ -462,9 +478,10 @@ class Trainer:
         for term in terms.values():
             loss = loss + term
         self.tx.opt.zero_grad(set_to_none=True)
-        loss.backward()
+        self._backward(loss, emb)
         self._sync_grads()
-        gnorm = self.tx.step(step)
+        with annotate("train.optimizer", self.device):
+            gnorm = self.tx.step(step)
         self.host_step += 1
         m = {"loss": loss.detach(), "grad_norm": gnorm}
         if terms:
@@ -472,6 +489,30 @@ class Trainer:
         # the shares → the global batch's values
         m.update(pmesh.sum_over_ranks({k: v for k, v in m.items() if k != "grad_norm"}))
         return m
+
+    def _backward(self, loss: torch.Tensor, emb: torch.Tensor) -> None:
+        """``loss.backward()``. While a profiler runs, the spans
+        ``train.head_backward`` (up to the embeddings' gradient) and
+        ``train.backward`` (the rest), parted by a hook on ``emb`` that
+        leaves the gradient as it is; autograd may call it on its own
+        device thread."""
+        head = begin("train.head_backward", self.device)
+        if head is None:
+            loss.backward()
+            return
+        rest = []
+
+        def part(_grad) -> None:
+            end(head)
+            rest.append(begin("train.backward", self.device, parent=head.parent, detail=True))
+
+        hook = emb.register_hook(part)
+        try:
+            loss.backward()
+        finally:
+            hook.remove()
+            end(head)
+            end(rest[0] if rest else None)
 
     def fit(self, batches: Iterable, max_steps: int | None = None,
             eval_fn: Callable[["Trainer"], dict] | None = None) -> dict[str, float]:
