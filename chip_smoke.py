@@ -70,7 +70,17 @@ since the script started):
    plan (each low's band height, the shared-memory budget, CTAs an SM by
    the occupancy API), and one call at B=512 runs under
    ``torch.cuda.set_sync_debug_mode("error")`` with the launch count set to
-   0 just before it and read just after (``launches_a_call``, which must be 1);
+   0 just before it and read just after (``launches_a_call``, which must be 1).
+   The train-mode BN's four kernels (``ops.batch_norm``, entry
+   ``batch_norm``): IR-50's five BN shapes at B=512 in bf16 (64×112² …
+   512×7²), a forward and backward each held against the plain version and
+   against float64 on the card (y and dx within rtol 2⁻⁷, dw and db within
+   1e-5 of their sums of |terms|, the running statistics within rtol 1e-5;
+   four launches), then timed with the L2 overwritten before each call
+   beside the plain version, ATen's ``F.batch_norm`` (the library), each
+   pass's bound (its bytes at 3.35 TB/s) and each kernel's µs from a
+   ``torch.profiler`` trace; the entry's numbers are the step's, each
+   shape's times its count among IR-50's 54 BatchNorm2d;
 3. embed: the main path, ``build_embed_pipeline("ir_50")`` at B=256 on
    random uint8 images (IR-50 in bf16, weights from seed 0), with the
    launch counters reset just before one call and read just after (exactly
@@ -101,7 +111,10 @@ since the script started):
    batch 512, bf16 compute, dropout 0.4, per-image lows 8–112 pil, SGD with
    momentum 0.9, weight decay 5e-4; warmup 0) on seeded random uint8 images
    on the card: one warm step, then one step with the launch counters reset
-   just before and read just after (exactly one preprocessing launch);
+   just before and read just after (exactly one preprocessing launch, and
+   the BN kernels 216 times: 4 for each of IR-50's 54 BatchNorm2d; every
+   train path below counts them too, 216 an IR-50 step, and where G or D
+   trains 4 a train-mode BatchNorm2d call, counted by ``bn_calls``);
    loss and gradient norm finite, parameters changed, the head's W float32;
    then ``run_train_throughput`` (windows of ten steps) with the peak of
    ``torch.cuda.max_memory_allocated`` and ``run_fit_throughput`` (the user
@@ -337,7 +350,8 @@ since the script started):
    full shape (C=85,742, IR-50, B=256, streaming CE, control C=1,000,
    steps cut): the loss finite and falling on its repeated batch, the
    head's marginal ms and the peak memory, kernel 1' once a step.
-   ``python3 chip_smoke.py --only bench`` runs phases 3, 14, 25 and 26.
+   ``python3 chip_smoke.py --only bench`` runs phases 3, 14, 25 and 26;
+   ``--only bn`` the BN kernels' entry and phases 7, 9 and 12.
 
 Then the ``{"kernels": [...]}`` line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and the exit code is
@@ -346,6 +360,7 @@ not 0. Without a CUDA device it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -370,7 +385,12 @@ B, S, LOW = 256, 112, 16
 TRAIN_B, LOWS = 512, (8, 112)          # casia_arcface: batch 512, degrade_min..degrade_max
 LOWS_NAME = "fused_degrade_normalize (a low per image)"
 PYRAMID_NAME, CROP_NAME = "fused_pyramid_normalize", "fused_crop_resize_normalize"
-NO_PHOTO = {PYRAMID_NAME: 0, CROP_NAME: 0}     # the ragged forms, off the detector's paths
+BN_NAME = "batch_norm"                 # ops.batch_norm's four kernels, counted together
+OFF_PATH = {PYRAMID_NAME: 0, CROP_NAME: 0, BN_NAME: 0}   # off a path unless it says so: the
+                                       # ragged forms (the detector's), the train-mode BN
+IR50_BN = 4 * 54                       # BN launches an IR-50 train step: 4 a BatchNorm2d
+IR50_BNS = ((64, 112, 2), (64, 56, 7), (128, 28, 9), (256, 14, 29), (512, 7, 7))
+                                       # IR-50's BN shapes at 112²: (C, side, how many of 54)
 BANK_M, BANK_D, BANK_K = 1 << 20, 512, 10
 SR_SCALE, SR_B = 8, 256                # the SR phase's batch: the largest power of two
                                        # under ~60 GB (~0.21 GB an image, PERF.md §4)
@@ -1020,6 +1040,216 @@ def phase_kernels_bank(bs) -> dict:
             "cases": cases, **_headline(cases[0]), **plan}
 
 
+BN_PASSES = (("stats", 1), ("transform", 2), ("backward_reduce", 2), ("backward_apply", 3))
+                                       # each pass's elements moved an element of x
+BN_SPIN = 20_000_000                   # ~11 ms a call: the host's issue of a forward and
+                                       # backward (~0.5-1 ms) enqueues behind it
+
+
+def _bn_args(b: int, c: int, side: int, seed: int) -> dict:
+    """bf16 x (a mean of up to ±3 a channel, so the variance comes out of
+    E[x²] − E[x]² with some cancellation) and dy, channels_last; float32
+    weight, bias and running statistics away from 1 and 0."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cl = torch.channels_last
+    x = torch.randn(b, c, side, side, generator=g, device="cuda") * 2 \
+        + 3 * torch.rand(1, c, 1, 1, generator=g, device="cuda")
+    dy = torch.randn(b, c, side, side, generator=g, device="cuda")
+    return {"x": x.bfloat16().contiguous(memory_format=cl),
+            "dy": dy.bfloat16().contiguous(memory_format=cl),
+            "w": torch.rand(c, generator=g, device="cuda") + 0.5,
+            "b": torch.randn(c, generator=g, device="cuda"),
+            "rm": torch.randn(c, generator=g, device="cuda"),
+            "rv": torch.rand(c, generator=g, device="cuda") + 0.5}
+
+
+def _bn_step(fn, a: dict):
+    """A forward and backward of ``fn`` on ``a`` (fresh leaves, the running
+    statistics moved in copies): → run() and its (y, dx, dw, db, rm, rv)."""
+    x = a["x"].detach().requires_grad_(True)
+    w, b = a["w"].detach().requires_grad_(True), a["b"].detach().requires_grad_(True)
+    rm, rv = a["rm"].clone(), a["rv"].clone()
+
+    def run():
+        x.grad = w.grad = b.grad = None
+        y = fn(x, w, b, rm, rv, 0.1, 1e-5)
+        y.backward(a["dy"])
+        return y
+
+    y = run()
+    return run, (y.detach(), x.grad, w.grad, b.grad, rm, rv)
+
+
+def _bn_exact(a: dict) -> tuple:
+    """The same forward and backward in float64 on the card."""
+    x, dy = a["x"].double(), a["dy"].double()
+    dims, shape = (0, 2, 3), (1, -1, 1, 1)
+    n = x.numel() // x.shape[1]
+    mean, var = x.mean(dims), x.var(dims, unbiased=False)
+    invstd = (var + 1e-5).rsqrt()
+    xhat = (x - mean.view(shape)) * invstd.view(shape)
+    del x
+    db, dw = dy.sum(dims), (dy * xhat).sum(dims)
+    w = a["w"].double()
+    y = xhat * w.view(shape) + a["b"].double().view(shape)
+    dx = (dy - (db / n).view(shape) - xhat * (dw / n).view(shape)) * (w * invstd).view(shape)
+    scale = {"dw": (dy * xhat).abs().sum(dims), "db": dy.abs().sum(dims),
+             "running_mean": a["x"].double().abs().mean(dims).max(),
+             "running_var": a["x"].double().square().mean(dims).max()}
+    return (y, dx, dw, db, 0.9 * a["rm"].double() + 0.1 * mean,
+            0.9 * a["rv"].double() + 0.1 * var), scale
+
+
+def _bn_errors(got: tuple, want: tuple, scale: dict) -> dict:
+    """Each output's largest error, as a share of its tolerance (≤ 1 passes):
+    y and dx in bf16 within one bf16 ulp (rtol 2⁻⁷, twice the rounding's
+    half ulp) and 1e-4 of the largest |value| (the values that cancel); dw
+    and db, float32 sums over the rows, within 1e-5 of their channel's sum
+    of |terms|; the running statistics within rtol 1e-5 and 1e-6 of the
+    largest E|x| (E[x²]), where ``new = 0.9·old + 0.1·batch`` cancels."""
+    out = {}
+    for name, g, w in zip(("y", "dx", "dw", "db", "running_mean", "running_var"), got, want):
+        err = (g.double() - w.double()).abs()
+        if name in ("y", "dx"):
+            tol = 2 ** -7 * w.double().abs() + 1e-4 * w.double().abs().max()
+        elif name in ("dw", "db"):
+            tol = 1e-5 * scale[name]
+        else:
+            tol = 1e-5 * w.double().abs() + 1e-6 * scale[name]
+        out[name] = {"max_abs_err": err.max().item(), "worst_share_of_tol":
+                     (err / tol).max().item()}
+        del err, tol
+    return out
+
+
+def _bn_kernel_us(run, flush, iters: int) -> dict[str, float]:
+    """Device µs a call of each kernel whose name holds ``batch_norm``, from
+    a ``torch.profiler`` trace, the L2 overwritten before each call."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush()
+            run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        prof.export_chrome_trace(os.path.join(d, "trace.json"))
+        with open(os.path.join(d, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    out: dict[str, float] = {}
+    for e in events:
+        if e.get("cat") == "kernel" and "batch_norm" in e.get("name", ""):
+            out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / iters
+    return out
+
+
+def _bn_call_ms(run, flush, iters: int) -> tuple[float, float]:
+    """(device ms, host µs) of a call: each after the L2 is overwritten,
+    as in a train step where other layers run between two BNs, behind a
+    spin, so that the host's issue does not pace the device."""
+    dev_ms = host_s = 0.0
+    for _ in range(iters):
+        flush()
+        torch.cuda._sleep(BN_SPIN)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        run()
+        host_s += time.perf_counter() - t0
+        end.record()
+        end.synchronize()
+        dev_ms += start.elapsed_time(end)
+    return dev_ms / iters, 1e6 * host_s / iters
+
+
+def bn_case(bn_op, c: int, side: int, count: int, flush, iters: int = 10) -> dict:
+    """One of IR-50's BN shapes at B=512 in bf16: ``ops.batch_norm``'s
+    forward and backward (its four kernels) against its plain version
+    (``batch_norm_reference``: ATen's kernels, the running variance
+    rescaled) and float64, then timed beside the plain version, ATen's
+    ``F.batch_norm`` alone (the library) and each pass's bound (its bytes
+    at 3.35 TB/s)."""
+    import torch.nn.functional as F
+
+    def library(x, w, b, rm, rv, m, eps):
+        return F.batch_norm(x, rm, rv, w, b, True, m, eps)
+
+    a = _bn_args(TRAIN_B, c, side, seed=c + side)
+    rows = a["x"].numel() // c
+    before = bn_op.batch_norm.launches
+    run, got = _bn_step(bn_op.batch_norm, a)
+    torch.cuda.synchronize()
+    launches = bn_op.batch_norm.launches - before
+    plain_run, plain = _bn_step(bn_op.batch_norm_reference, a)
+    exact, scale = _bn_exact(a)
+    errs = {"vs_f64": _bn_errors(got, exact, scale),
+            "plain_vs_f64": _bn_errors(plain, exact, scale)}
+    del exact, scale
+    vs_plain = {k: (g.float() - p.float()).abs().max().item()
+                for k, g, p in zip(("y", "dx", "dw", "db"), got, plain)}
+    worst = max(e["worst_share_of_tol"] for e in errs["vs_f64"].values())
+    if launches != 4 or not worst <= 1.0:
+        raise AssertionError(f"batch_norm {c}x{side}² at B={TRAIN_B}: {launches} launches, "
+                             f"errors against float64 {errs['vs_f64']}")
+    case = {"shape": [TRAIN_B, c, side, side], "dtype": "bfloat16", "rows": rows,
+            "count_in_ir50": count, "launches": launches, "plan": list(bn_op._plan(a["x"])),
+            "max_abs_err": max(vs_plain.values()), "max_abs_err_vs_plain": vs_plain,
+            "errors": errs, "bound_by": "bytes"}
+    for tag, fn in (("", run), ("plain_", plain_run),
+                    ("library_", _bn_step(library, a)[0])):
+        for _ in range(3):
+            fn()
+        case[f"{tag}ms"], case[f"{tag}host_us"] = _bn_call_ms(fn, flush, iters)
+        case[f"{tag}kernel_us"] = _bn_kernel_us(fn, flush, iters)
+    case["bound_us"] = {p: 1e6 * k * rows * c * a["x"].element_size() / PEAK_BYTES_PER_S
+                        for p, k in BN_PASSES}
+    case["bound_ms"] = sum(case["bound_us"].values()) / 1e3
+    return case
+
+
+def phase_kernels_bn() -> dict:
+    """The train-mode BN's four kernels at IR-50's five BN shapes at B=512
+    (``bn_case``), and the step's sums: each shape's numbers times its
+    count among IR-50's 54 BatchNorm2d."""
+    from crfr_torch.ops import batch_norm as bn_op
+
+    scrub = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    cases = []
+    for c, side, count in IR50_BNS:
+        cases.append(bn_case(bn_op, c, side, count, lambda: scrub.fill_(1)))
+        torch.cuda.empty_cache()
+
+    def total(key):
+        return sum(cs[key] * cs["count_in_ir50"] for cs in cases)
+
+    def by_kernel(key, names):
+        return {p: sum(us * cs["count_in_ir50"] for cs in cases for n, us in cs[key].items()
+                       if f"crfr_batch_norm_{p}_kernel" in n.split("<")[0]) / 1e3
+                for p in names}
+
+    passes = [p for p, _ in BN_PASSES]
+    step = {"max_abs_err": max(cs["max_abs_err"] for cs in cases), "ms": total("ms"),
+            "plain_ms": total("plain_ms"), "library_ms": total("library_ms"),
+            "bound_ms": total("bound_ms"), "bound_by": "bytes",
+            "host_us": total("host_us"), "plain_host_us": total("plain_host_us"),
+            "library_host_us": total("library_host_us")}
+    step["ms_by_pass"] = by_kernel("kernel_us", passes)
+    step["bound_ms_by_pass"] = {p: sum(cs["bound_us"][p] * cs["count_in_ir50"]
+                                       for cs in cases) / 1e3 for p in passes}
+    library_kernels: dict[str, float] = {}
+    for cs in cases:
+        for n, us in cs["library_kernel_us"].items():
+            library_kernels[n] = library_kernels.get(n, 0.0) + us * cs["count_in_ir50"] / 1e3
+    step["library_kernel_ms"] = library_kernels
+    if sorted(k for k, v in step["ms_by_pass"].items() if v > 0) != sorted(passes):
+        raise AssertionError(f"batch_norm: the trace lacks a pass: {step['ms_by_pass']}, "
+                             f"kernels {sorted(cases[0]['kernel_us'])}")
+    return {"name": BN_NAME, "route": "cuda", "source": "crfr_torch/ops/csrc/batch_norm.cu",
+            "replaces": None, "computes": "crfr/models/irse.py:86-154 (nnx.BatchNorm in train "
+                                          "mode, compiled by XLA)",
+            "on_main_path": True, "case": "IR-50's 54 BatchNorm2d of a train step at B=512, "
+                                          "bf16, forward and backward",
+            "cases": cases, **_headline(step), "step": step}
+
+
 def _headline(case: dict) -> dict:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     out = {k: case[k] for k in keys}
@@ -1028,26 +1258,65 @@ def _headline(case: dict) -> dict:
 
 
 def _counts(fp) -> dict:
+    from crfr_torch.ops import batch_norm as bn_op
+
     return {"fused_degrade_normalize": fp.fused_degrade_normalize.launches,
             LOWS_NAME: fp.fused_degrade_normalize.lows_launches,
             "fused_resize_normalize": fp.fused_resize_normalize.launches,
             PYRAMID_NAME: fp.fused_resize_normalize.pyramid_launches,
-            CROP_NAME: fp.fused_resize_normalize.crop_launches}
+            CROP_NAME: fp.fused_resize_normalize.crop_launches,
+            BN_NAME: bn_op.batch_norm.launches}
 
 
 def _only(name: str) -> dict:
     """The launch counts of a path that launches kernel ``name`` once and no
     other."""
-    return {**{k: 0 for k in (*NO_PHOTO, "fused_degrade_normalize", LOWS_NAME,
+    return {**{k: 0 for k in (*OFF_PATH, "fused_degrade_normalize", LOWS_NAME,
                               "fused_resize_normalize")}, name: 1}
 
 
 def _zero_counts(fp) -> None:
+    from crfr_torch.ops import batch_norm as bn_op
+
+    bn_op.batch_norm.launches = 0
     fp.fused_degrade_normalize.launches = 0
     fp.fused_degrade_normalize.lows_launches = 0
     fp.fused_resize_normalize.launches = 0
     fp.fused_resize_normalize.pyramid_launches = 0
     fp.fused_resize_normalize.crop_launches = 0
+
+
+@contextlib.contextmanager
+def bn_calls():
+    """Counts, while open, the calls of ``irse.BatchNorm2d`` that its
+    kernels should take (train mode, on the card, one rank's batch) and the
+    backward passes through their outputs: ``bn_launches`` of them is what
+    ``batch_norm.launches`` must read, 2 a forward and 2 a backward."""
+    from crfr_torch.models import irse
+
+    calls = {"forward": 0, "backward": 0}
+    plain = irse.BatchNorm2d.forward
+
+    def backward(_grad):
+        calls["backward"] += 1
+
+    def counted(self, x):
+        y = plain(self, x)
+        if self.training and x.is_cuda and not self.global_stats:
+            calls["forward"] += 1
+            if y.requires_grad:
+                y.register_hook(backward)
+        return y
+
+    irse.BatchNorm2d.forward = counted
+    try:
+        yield calls
+    finally:
+        del irse.BatchNorm2d.forward
+
+
+def bn_launches(calls: dict) -> int:
+    return 2 * (calls["forward"] + calls["backward"])
 
 
 def phase_embed(fp) -> tuple[dict, dict]:
@@ -1359,9 +1628,10 @@ def phase_train(fp) -> dict:
     loss, gnorm = m["loss"].item(), m["grad_norm"].item()
     changed = sum(not torch.equal(before[k], v) for k, v in tr.model.named_parameters())
     w = tr.model.head.weight
-    if launches != {"fused_degrade_normalize": 0, LOWS_NAME: 1, "fused_resize_normalize": 0, **NO_PHOTO}:
+    if launches != {"fused_degrade_normalize": 0, LOWS_NAME: 1, "fused_resize_normalize": 0,
+                    **OFF_PATH, BN_NAME: IR50_BN}:
         raise AssertionError(f"train: one step launched {launches}, want one degrade with a "
-                             f"low per image")
+                             f"low per image and the BN kernels 4 times a BatchNorm2d")
     if not (np.isfinite(loss) and np.isfinite(gnorm)):
         raise AssertionError(f"train: loss {loss}, grad norm {gnorm}")
     if changed != len(before) or w.dtype != torch.float32 or tuple(w.shape) != (512, 10572):
@@ -1518,7 +1788,7 @@ def phase_train_eval(fp) -> dict:
         eval_b = min(get_config("casia_arcface").eval.batch_size, 600)
         per_eval = 2 * -(-600 // eval_b)                     # both sides of the pairs
         want = {"fused_degrade_normalize": 2 * per_eval, LOWS_NAME: 6,
-                "fused_resize_normalize": 0, **NO_PHOTO}
+                "fused_resize_normalize": 0, **OFF_PATH, BN_NAME: 6 * IR50_BN}
         if final != {"final_step": 6} or sorted(evals) != [3, 6] or launches != want:
             raise AssertionError(f"train_eval: {final}, eval steps {sorted(evals)}, "
                                  f"launches {launches}, want {want}")
@@ -1607,7 +1877,7 @@ def phase_soak(fp) -> dict:
     # 120 soak steps, the step-only ceiling's 1 + 30, and the traced windows'
     # 2 × (3 + 10 + 10); one eval: both sides of 600 pairs at batch 256
     want = {"fused_degrade_normalize": 2 * -(-600 // 256), LOWS_NAME: 120 + 31 + 46,
-            "fused_resize_normalize": 0, **NO_PHOTO}
+            "fused_resize_normalize": 0, **OFF_PATH, BN_NAME: (120 + 31 + 46) * IR50_BN}
     if launches != want or len(out["eval_accuracy"]) != 1 or not np.isfinite(out["final_loss"]):
         raise AssertionError(f"soak: launches {launches}, want {want}; {out}")
     out.pop("workdir")
@@ -1722,7 +1992,7 @@ def phase_roofline(embed: dict) -> dict:
                       **{k: tr[k] for k in keys}}}
 
 
-SR_ONE_RESIZE = {"fused_degrade_normalize": 0, LOWS_NAME: 0, "fused_resize_normalize": 1, **NO_PHOTO}
+SR_ONE_RESIZE = {"fused_degrade_normalize": 0, LOWS_NAME: 0, "fused_resize_normalize": 1, **OFF_PATH}
 
 
 def _nested_equal(a, b) -> bool:
@@ -1809,7 +2079,8 @@ def phase_sr_train(fp) -> dict:
     before = {n: {k: v.detach().clone() for k, v in getattr(tr, n).named_parameters()}
               for n in ("g", "d")}
     _zero_counts(fp)
-    m = tr.train_step(x)
+    with bn_calls() as calls:
+        m = tr.train_step(x)
     torch.cuda.synchronize()
     launches = _counts(fp)
     g_loss, d_loss = m["g_loss"].item(), m["d_loss"].item()
@@ -1817,8 +2088,10 @@ def phase_sr_train(fp) -> dict:
                       for k, v in before[n].items()) for n in ("g", "d")}
     ema_apart = sum(not torch.equal(a, b) for a, b in zip(tr.g_ema.parameters(),
                                                             tr.g.parameters()))
-    if launches != SR_ONE_RESIZE:
-        raise AssertionError(f"sr_train: one step launched {launches}, want one resize")
+    want = {**SR_ONE_RESIZE, BN_NAME: bn_launches(calls)}
+    if launches != want or not calls["forward"]:
+        raise AssertionError(f"sr_train: one step launched {launches}, want one resize and "
+                             f"the BN kernels for G's and D's {calls} BatchNorm2d calls")
     if not (np.isfinite(g_loss) and np.isfinite(d_loss)):
         raise AssertionError(f"sr_train: g_loss {g_loss}, d_loss {d_loss}")
     if not (changed["g"] and changed["d"] and ema_apart):
@@ -2060,15 +2333,18 @@ def phase_distill(fp) -> dict:
         first_s = time.perf_counter() - t0
         before = {k: v.detach().clone() for k, v in st.model.named_parameters()}
         _zero_counts(fp)
-        m = st.train_step(xb, yb)
+        with bn_calls() as calls:
+            m = st.train_step(xb, yb)
         torch.cuda.synchronize()
         launches = _counts(fp)
         metrics = {k: v.item() for k, v in m.items()}
         changed = sum(not torch.equal(before[k], v) for k, v in st.model.named_parameters())
         del before
-        want = ({"fused_degrade_normalize": 0, LOWS_NAME: 1, "fused_resize_normalize": 0, **NO_PHOTO}
+        want = ({"fused_degrade_normalize": 0, LOWS_NAME: 1, "fused_resize_normalize": 0, **OFF_PATH}
                 if path == "bicubic" else SR_ONE_RESIZE)
-        if launches != want:
+        # the student's 54 BatchNorm2d, and G's where it trains
+        want = {**want, BN_NAME: bn_launches(calls)}
+        if launches != want or (path != "joint_g" and want[BN_NAME] != IR50_BN):
             raise AssertionError(f"distill {path}: one step launched {launches}, want {want}")
         if not all(np.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"distill {path}: step metrics {metrics}")
@@ -2249,7 +2525,7 @@ def phase_int8_embed(fp) -> dict:
     if tuple(emb8.shape) != (B, 512) or emb8.dtype != torch.float32 \
             or not torch.isfinite(emb8).all():
         raise AssertionError(f"int8_embed: bad output {tuple(emb8.shape)} {emb8.dtype}")
-    want = {"fused_degrade_normalize": 1, LOWS_NAME: 0, "fused_resize_normalize": 0, **NO_PHOTO}
+    want = {"fused_degrade_normalize": 1, LOWS_NAME: 0, "fused_resize_normalize": 0, **OFF_PATH}
     if launches != want:
         raise AssertionError(f"int8_embed: one batch launched {launches}, want {want}")
     q = embed8.model
@@ -2340,7 +2616,7 @@ def phase_bench(fp, embed: dict, int8_embed: dict) -> dict:
         run_throughput(batch=B, steps=2, repeats=1, int8=int8, device="cuda")
         torch.cuda.synchronize()
         launches = _counts(fp)
-        want = {"fused_degrade_normalize": 4, LOWS_NAME: 0, "fused_resize_normalize": 0, **NO_PHOTO}
+        want = {"fused_degrade_normalize": 4, LOWS_NAME: 0, "fused_resize_normalize": 0, **OFF_PATH}
         if launches != want:         # batches: the first, one re-warm, two timed
             raise AssertionError(f"bench {name}: four batches launched {launches}, want {want}")
         out[name] = {"line": line, "in_process_ms_per_batch": in_process,
@@ -2403,7 +2679,8 @@ def ms1m_scale_run(fp) -> dict:
     # two run_train_throughput runs (a first step, three windows) and
     # the repeated batch's first step and MS1M_STEPS more
     steps = 2 * (1 + 3 * MS1M_STEPS) + 1 + MS1M_STEPS
-    want = {"fused_degrade_normalize": 0, LOWS_NAME: steps, "fused_resize_normalize": 0, **NO_PHOTO}
+    want = {"fused_degrade_normalize": 0, LOWS_NAME: steps, "fused_resize_normalize": 0, **OFF_PATH,
+            BN_NAME: steps * IR50_BN}
     if (rc != 0 or set(scale) != MS1M_SCALE_KEYS or launches != want
             or not np.isfinite([scale["loss_first"], scale["loss_after_steps"]]).all()
             or not scale["loss_after_steps"] < scale["loss_first"]
@@ -2549,7 +2826,7 @@ def phase_headline(fp) -> dict:
     calls. The ordering is reported, not asserted: the steps are cut."""
     from crfr_torch.experiments import headline as hl
 
-    int8_sr = {"calls": 0, "fused_resize_normalize": 0, **NO_PHOTO}
+    int8_sr = {"calls": 0, "fused_resize_normalize": 0, **OFF_PATH}
     twins = hl._int8_probe_embedders
 
     def counted(*a, **k):
@@ -2572,7 +2849,8 @@ def phase_headline(fp) -> dict:
             h = hl.HeadlineCfg(out_dir=f"{tmp}/headline", **HEADLINE_CUTS)
             _zero_counts(fp)
             t0 = time.perf_counter()
-            table = hl.run_headline(h, device="cuda")
+            with bn_calls() as calls:
+                table = hl.run_headline(h, device="cuda")
             wall = time.perf_counter() - t0
             launches = _counts(fp)
             with open(os.path.join(h.out_dir, "headline.json")) as f:
@@ -2606,6 +2884,9 @@ def phase_headline(fp) -> dict:
         if not (np.isfinite(st["loss_sr"]) and np.isfinite(st["loss_bic"])
                 and np.isfinite(table["stages"][f"sr{p}"]["g_loss"])):
             raise AssertionError(f"headline: {p} px losses {st}")
+    if launches[BN_NAME] != bn_launches(calls) or not calls["backward"]:
+        raise AssertionError(f"headline: the BN kernels launched {launches[BN_NAME]} times "
+                             f"for {calls} train-mode BatchNorm2d calls")
     if not (int8_sr["calls"] > 0 and int8_sr["fused_resize_normalize"] == int8_sr["calls"]):
         raise AssertionError(f"headline: the int8 student_sr embedder launched kernel 2 "
                              f"{int8_sr['fused_resize_normalize']} times in "
@@ -3042,7 +3323,7 @@ def phase_export(fp, tmp: str) -> tuple[dict, dict]:
     tr = Trainer(cfg, device="cuda")
     g = torch.Generator(device="cuda").manual_seed(30)
     x = torch.randint(0, 256, (B, S, S, 3), generator=g, device="cuda", dtype=torch.uint8)
-    one_launch = {"fused_degrade_normalize": 1, LOWS_NAME: 0, "fused_resize_normalize": 0, **NO_PHOTO}
+    one_launch = {"fused_degrade_normalize": 1, LOWS_NAME: 0, "fused_resize_normalize": 0, **OFF_PATH}
 
     def export(name, **kw):
         path = f"{tmp}/{name}.crfrt"
@@ -3719,8 +4000,9 @@ def _rank_train(tmp: str, rank: int) -> dict:
         torch.cuda.reset_peak_memory_stats()
         _zero_counts(fp)
         t0 = time.perf_counter()
-        for _ in range(DIST_BF16_STEPS):
-            m_bf16 = tr.train_step(x, y)
+        with bn_calls() as calls:
+            for _ in range(DIST_BF16_STEPS):
+                m_bf16 = tr.train_step(x, y)
         loss = m_bf16["loss"].item()
         ms = (time.perf_counter() - t0) / DIST_BF16_STEPS * 1e3
         counts = _counts(fp)
@@ -3736,6 +4018,7 @@ def _rank_train(tmp: str, rank: int) -> dict:
         extract_counts = _counts(fp)
         out[name].update({"bf16_ms_per_step": ms,
                      "bf16_loss": loss, "peak_bytes": peak, "launches": counts,
+                     "bn_calls": calls,
                      "extract_launches": extract_counts,
                      "extract_cos_min_vs_whole": _cos_min(split.float(), whole.float())})
         del tr, x, y, fn
@@ -3921,10 +4204,12 @@ def phase_distributed(gallery_ref: dict, cli_started: dict) -> dict:
                                      f"by {worst}, ranks agree {same}")
             per_rank = [o[name] for o in ranks]
             for r, o in enumerate(per_rank):
+                # the global BN (``_GlobalBatchNorm``) where the batch spans the ranks
                 want = {"fused_degrade_normalize": 0, LOWS_NAME: DIST_BF16_STEPS,
-                        "fused_resize_normalize": 0, **NO_PHOTO}
+                        "fused_resize_normalize": 0, **OFF_PATH,
+                        BN_NAME: bn_launches(o["bn_calls"])}
                 if o["launches"] != want or o["extract_launches"] != {
-                        "fused_degrade_normalize": 1, LOWS_NAME: 0, "fused_resize_normalize": 0, **NO_PHOTO}:
+                        "fused_degrade_normalize": 1, LOWS_NAME: 0, "fused_resize_normalize": 0, **OFF_PATH}:
                     raise AssertionError(f"distributed train {name}: rank {r} launched "
                                          f"{o['launches']} in {DIST_BF16_STEPS} steps and "
                                          f"{o['extract_launches']} in one split extract")
@@ -4051,6 +4336,16 @@ def main() -> int:
         emit({"phase": "kernels", "photo_cases": photo, "kernels": ragged, "card": smi})
         emit({**phase_detect(fp)[0], "card": smi})
         return 0
+    if only == ["bn"]:                  # the BN kernels, and the train phases that take them
+        bn = phase_kernels_bn()
+        emit({"phase": "kernels", "cases": len(bn["cases"])})
+        train = phase_train(fp)
+        emit({**train, "card": smi})
+        emit({**phase_sr_train(fp), "card": smi})
+        emit({**phase_distill(fp), "card": smi})
+        bn["launches"] = train["launches"][BN_NAME]
+        emit({"kernels": [bn], "card": smi, "total_s": time.perf_counter() - t_start})
+        return 0
     if only == ["bench"]:               # phases 25-26, with the phases bench compares with
         embed, _ = phase_embed(fp)
         emit({**embed, "card": smi})
@@ -4061,7 +4356,8 @@ def main() -> int:
         emit({**phase_ms1m(fit, ms1m_scale_run(fp)), "card": smi})
         return 0
     emit(phase_first_launch(first_launch))
-    kernels = phase_kernels(fp) + [phase_kernels_bank(bs), phase_kernels_lows(fp)]
+    kernels = phase_kernels(fp) + [phase_kernels_bank(bs), phase_kernels_lows(fp),
+                                   phase_kernels_bn()]
     emit({"phase": "kernels", "cases": sum(len(k["cases"]) for k in kernels)})
     embed, state = phase_embed(fp)
     emit({**embed, "card": smi})
@@ -4154,7 +4450,7 @@ def main() -> int:
              # kernel 1' a rank a step, one kernel 1 a rank a split extract
              **{f"distributed_{k}": v for k, v in distributed["launches"].items()}}
     own = {"bank_tilemax": gallery, LOWS_NAME: train, "fused_resize_normalize": sr_train,
-           PYRAMID_NAME: detect, CROP_NAME: detect}
+           PYRAMID_NAME: detect, CROP_NAME: detect, BN_NAME: train}
     for k in kernels:
         k["launches"] = own.get(k["name"], embed)["launches"][k["name"]]
         k["launches_by_path"] = {p: v[k["name"]] for p, v in paths.items() if k["name"] in v}

@@ -47,6 +47,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from crfr_torch.ops.batch_norm import batch_norm
+
 _DEPTH_CONFIGS: dict[str, tuple[tuple[int, int], ...]] = {
     "18": ((64, 2), (128, 2), (256, 2), (512, 2)),
     "34": ((64, 3), (128, 4), (256, 6), (512, 3)),
@@ -121,14 +123,11 @@ class _GlobalBatchNorm(torch.autograd.Function):
 
 
 class _FlaxStats:
-    """Train-mode BN whose running variance takes the biased batch variance.
-
-    torch's kernel updates ``running_var`` with ``(1−m)·rv + m·var·n/(n−1)``.
-    Handing it ``rv·n/(n−1)`` and scaling its result by (n−1)/n gives
-    ``(1−m)·rv + m·var``, flax's update: a few operations on C values and
-    no extra pass over the activations. (The kernel gets a copy: autograd
-    keeps what it was given for the backward pass.) With ``global_stats``
-    the batch is every rank's (``_GlobalBatchNorm``)."""
+    """Train-mode BN whose running variance takes the biased batch variance
+    (``ops.batch_norm``): a rank-4 input on the card through its
+    hand-written kernels, anything else through its plain version (ATen's
+    kernel with the running variance rescaled). With ``global_stats`` the
+    batch is every rank's (``_GlobalBatchNorm``)."""
 
     global_stats = False
 
@@ -150,14 +149,8 @@ class _FlaxStats:
                     self.running_mean.mul_(1 - m).add_(mean, alpha=m)
                     self.running_var.mul_(1 - m).add_(var, alpha=m)
             return y
-        with torch.no_grad():
-            rm = self.running_mean.clone() if frozen else self.running_mean
-            rv = self.running_var * (n / (n - 1))
-        y = F.batch_norm(x, rm, rv, self.weight, self.bias, True, self.momentum, self.eps)
-        if not frozen:
-            with torch.no_grad():
-                torch.mul(rv, (n - 1) / n, out=self.running_var)
-        return y
+        return batch_norm(x, self.weight, self.bias, self.running_mean, self.running_var,
+                          self.momentum, self.eps, update=not frozen)
 
 
 class BatchNorm2d(_FlaxStats, nn.BatchNorm2d):

@@ -20,7 +20,7 @@ import threading
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "fused_preprocess.cu", _CSRC / "bank_scan.cu")
+SOURCES = (_CSRC / "fused_preprocess.cu", _CSRC / "bank_scan.cu", _CSRC / "batch_norm.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "crfr_torch_kernels"
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xcompiler", "-fPIC")
@@ -39,7 +39,7 @@ def _nvcc() -> str:
 
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.crfr_resample_normalize.argtypes = [p, i, p, i, i, i, p, i, i, i, i, p]
     lib.crfr_resample_normalize.restype = i
     lib.crfr_resample_info.argtypes = [i, i, i, i, p, i, i, i, i, p]
@@ -66,6 +66,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.crfr_bank_tilemax_tile.restype = i
     lib.crfr_bank_tilemax_info.argtypes = [i, i, i, p]
     lib.crfr_bank_tilemax_info.restype = i
+    lib.crfr_batch_norm_stats.argtypes = [p, i, ll, i, i, i, i, i, p, p, p, p, p, p, f, f, i, p]
+    lib.crfr_batch_norm_stats.restype = i
+    lib.crfr_batch_norm_transform.argtypes = [p, p, i, ll, i, i, i, i, i, p, p, p, p, p]
+    lib.crfr_batch_norm_transform.restype = i
+    lib.crfr_batch_norm_backward_reduce.argtypes = [p, p, i, ll, i, i, i, i, i, p, p, p, p, p, p, p]
+    lib.crfr_batch_norm_backward_reduce.restype = i
+    lib.crfr_batch_norm_backward_apply.argtypes = [p, p, p, i, ll, i, i, i, i, i, p, p, p, p, p, p]
+    lib.crfr_batch_norm_backward_apply.restype = i
     lib.crfr_error_string.argtypes = [i]
     lib.crfr_error_string.restype = ctypes.c_char_p
     return lib

@@ -17,7 +17,12 @@ plan equal to the bands bit for bit where both fit; the ragged forms (every
 level of a photo's pyramid in one launch, a stage's crops in one launch)
 against their plain versions and, bit for bit, against a launch a level or
 a crop; and the MTCNN cascade on the card equal to the same cascade on CPU
-tensors, with three launches of the ragged forms a photo.
+tensors, with three launches of the ragged forms a photo. The train-mode
+BatchNorm (``ops.batch_norm``) against its plain path on the CPU at each
+of IR-50's BN shapes in bf16 and float32 and at B=512's stage-1 shape, bit
+for bit from call to call and under a remat recomputation (statistics
+left), and the IR-50 and MobileFaceNet train steps with every BatchNorm2d
+through its four kernels.
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor crfr, so it also runs where only PyTorch is installed:
@@ -33,6 +38,7 @@ import torch
 from crfr_torch.device import strict_fp32
 from crfr_torch.ops import _build
 from crfr_torch.ops import bank_scan as bs
+from crfr_torch.ops import batch_norm as bn_op
 from crfr_torch.ops import fused_preprocess as fp
 
 pytestmark = pytest.mark.gpu
@@ -909,3 +915,198 @@ def test_mtcnn_train_step_launches_the_crop_form_once_a_net(cuda):
     losses = train_mtcnn_synthetic(mt, steps=1, batch_scenes=2, seed=0)
     assert tuple(a - b for a, b in zip(_ragged_counts(), before)) == (0, 0, 3 * 2)
     assert all(np.isfinite(v) for v in losses.values())
+
+
+# IR-50's distinct train-mode BatchNorm2d shapes at 112²: (C, side), and how
+# many of its 54 BNs take each
+IR50_BNS = [(64, 112, 2), (64, 56, 7), (128, 28, 9), (256, 14, 29), (512, 7, 7)]
+
+
+def _bn_inputs(b, c, side, seed):
+    """float32 on the CPU: x with a mean of up to ±3 a channel (so the
+    variance comes out of E[x²] − E[x]² with some cancellation), dy, and
+    weight, bias and running statistics away from 1 and 0."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, c, side, side, generator=g) * 2 + 3 * torch.rand(1, c, 1, 1, generator=g)
+    dy = torch.randn(b, c, side, side, generator=g)
+    w, bias = torch.rand(c, generator=g) + 0.5, torch.randn(c, generator=g)
+    return x, dy, w, bias, torch.randn(c, generator=g), torch.rand(c, generator=g) + 0.5
+
+
+def _bn_run(x, dy, w, bias, rm, rv, device, dtype, update=True):
+    """``ops.batch_norm`` forward and backward on ``device`` in ``dtype``
+    (the parameters and statistics float32): y, dx, dw, db, rm, rv on the
+    CPU in float32."""
+    cl = torch.channels_last
+    xd = x.to(device, dtype).contiguous(memory_format=cl).requires_grad_(True)
+    wd, bd = w.to(device).requires_grad_(True), bias.to(device).requires_grad_(True)
+    rmd, rvd = rm.to(device).clone(), rv.to(device).clone()
+    y = bn_op.batch_norm(xd, wd, bd, rmd, rvd, 0.1, 1e-5, update=update)
+    y.backward(dy.to(device, dtype).contiguous(memory_format=cl))
+    return [t.detach().float().cpu() for t in (y, xd.grad, wd.grad, bd.grad, rmd, rvd)]
+
+
+def _bn_check(got, want, dtype, x, dy, stats=True):
+    """The kernel on the card against the plain path on the CPU in float32,
+    fed the same values (bf16 inputs upcast). Tolerances:
+    - y and dx in bf16: within one bf16 ulp (2⁻⁸ to 2⁻⁷ of the value) of
+      the float32 result, so rtol 2⁻⁷: the two float32 values differ in
+      their last bits (the sums' order), and one that lies near a rounding
+      edge rounds the other way (at B=512, dx did so for 278 of 411 M
+      values); atol 1e-4 of the largest |value| for the values that cancel
+      (dy − mean(dy) − x̂·mean(dy·x̂)). In float32: rtol 1e-5, the same atol.
+    - dw, db: float32 sums of n products in another order than ATen's (a
+      blocked tree either way): 1e-5 of the channel's sum of |terms|.
+    - running statistics: float32 sums over the rows in another order than
+      ATen's Welford: the batch's moments within 1e-5 of E|x| and E[x²] (at
+      6.4 M rows the mean's sum of 760 terms a thread moved by 5.5e-6 of
+      E|x|), of which the update takes 0.1; rtol 1e-5."""
+    y, dx, dw, db, rm, rv = got
+    wy, wdx, wdw, wdb, wrm, wrv = want
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(y, wy, rtol=rtol, atol=1e-4 * wy.abs().max().item())
+    torch.testing.assert_close(dx, wdx, rtol=rtol, atol=1e-4 * wdx.abs().max().item())
+    dims = (0, 2, 3)
+    xhat = (x - x.mean(dims, keepdim=True)) / x.std(dims, unbiased=False, keepdim=True)
+    torch.testing.assert_close(db, wdb, rtol=0, atol=1e-5 * dy.abs().sum(dims).max().item())
+    torch.testing.assert_close(dw, wdw, rtol=0,
+                               atol=1e-5 * (dy * xhat).abs().sum(dims).max().item())
+    if stats:
+        torch.testing.assert_close(rm, wrm, rtol=1e-5,
+                                   atol=1e-6 * x.abs().mean(dims).max().item())
+        torch.testing.assert_close(rv, wrv, rtol=1e-5,
+                                   atol=1e-6 * (x * x).mean(dims).max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,side,_n", IR50_BNS + [(24, 9, 0), (3, 5, 0)])
+def test_batch_norm_kernel_matches_plain(cuda, c, side, _n, dtype):
+    """Each of IR-50's BN shapes at B=4, plus C = 24 (16-byte loads, three
+    CTAs across a row) and C = 3 (one channel a load): forward, input,
+    weight and bias gradients and running statistics against the CPU's
+    plain path, four launches."""
+    x, dy, w, bias, rm, rv = _bn_inputs(4, c, side, seed=c + side)
+    x, dy = x.to(dtype).float(), dy.to(dtype).float()
+    before = bn_op.batch_norm.launches
+    got = _bn_run(x, dy, w, bias, rm, rv, cuda, dtype)
+    torch.cuda.synchronize()
+    assert bn_op.batch_norm.launches == before + 4
+    want = _bn_run(x, dy, w, bias, rm, rv, "cpu", torch.float32)
+    _bn_check(got, want, dtype, x, dy)
+
+
+def test_batch_norm_kernel_at_b512_stage_one(cuda):
+    """64 channels over 512·112² = 6.4 M rows in bf16 (264 CTAs of 24 K
+    rows): output and gradients against the CPU's plain path, the running
+    statistics against float64 moments on the card (rtol 1e-5). At this
+    size the CPU's float32 sums, serial over far more rows a thread than
+    the kernel's 760, leave its running variance 2.8e-4 off the float64
+    one, beyond the 1e-5 the kernel holds."""
+    x, dy, w, bias, rm, rv = _bn_inputs(512, 64, 112, seed=7)
+    x, dy = x.bfloat16().float(), dy.bfloat16().float()
+    got = _bn_run(x, dy, w, bias, rm, rv, cuda, torch.bfloat16)
+    want = _bn_run(x, dy, w, bias, rm, rv, "cpu", torch.float32)
+    x64 = x.to(cuda, torch.float64)
+    moments = (x64.mean((0, 2, 3)), x64.var((0, 2, 3), unbiased=False))
+    del x64
+    for stat, old, batch in zip(got[4:], (rm, rv), moments):
+        exact = (0.9 * old.double() + 0.1 * batch.cpu()).float()
+        torch.testing.assert_close(stat, exact, rtol=1e-5, atol=0)
+    _bn_check(got, want, torch.bfloat16, x, dy, stats=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_batch_norm_kernel_is_bit_identical_and_recomputes_frozen(cuda, dtype):
+    """Two calls give the same bits (no float atomics); a call with
+    ``update=False`` (a remat block's recomputation) gives the same output
+    and gradients and leaves the running statistics as they were, through
+    ``irse.BatchNorm2d`` under ``_recomputing`` too."""
+    from crfr_torch.models import irse
+
+    x, dy, w, bias, rm, rv = _bn_inputs(16, 128, 28, seed=3)
+    runs = [_bn_run(x, dy, w, bias, rm, rv, cuda, dtype) for _ in range(2)]
+    frozen = _bn_run(x, dy, w, bias, rm, rv, cuda, dtype, update=False)
+    for a, b, f in zip(runs[0], runs[1], frozen[:4]):
+        assert torch.equal(a, b)
+        assert torch.equal(a, f)
+    assert torch.equal(frozen[4], rm) and torch.equal(frozen[5], rv)
+    assert not torch.equal(runs[0][5], rv)
+    m = irse.BatchNorm2d(128, **irse._BN).to(cuda).train()
+    xd = x.to(cuda, dtype).contiguous(memory_format=torch.channels_last)
+    with irse._recomputing():
+        m(xd)
+    assert torch.equal(m.running_mean, torch.zeros_like(m.running_mean))
+    assert torch.equal(m.running_var, torch.ones_like(m.running_var))
+    m(xd)
+    assert not torch.equal(m.running_var, torch.ones_like(m.running_var))
+
+
+def test_batch_norm_kernel_refuses_what_it_does_not_take(cuda):
+    x = torch.randn(2, 8, 4, 4, device=cuda)
+    w, b = torch.ones(8, device=cuda), torch.zeros(8, device=cuda)
+    rm, rv = torch.zeros(8, device=cuda), torch.ones(8, device=cuda)
+    with pytest.raises(ValueError, match="channels_last"):
+        bn_op.batch_norm(x, w, b, rm, rv, 0.1, 1e-5)
+    cl = x.contiguous(memory_format=torch.channels_last)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        bn_op.batch_norm(cl.half(), w, b, rm, rv, 0.1, 1e-5)
+    with pytest.raises(ValueError, match="weight must be"):
+        bn_op.batch_norm(cl, w.cpu(), b, rm, rv, 0.1, 1e-5)
+    # a launch the library refuses raises through the wrapper's check
+    lib = _build.load_library()
+    err = lib.crfr_batch_norm_transform(cl.data_ptr(), cl.data_ptr(), 0, 32, 8, 4, 3, 1, 1,
+                                        rm.data_ptr(), rv.data_ptr(), w.data_ptr(),
+                                        b.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        _build.check(lib, err, "batch_norm")
+
+
+def test_batch_norm_sends_other_ranks_to_the_plain_path(cuda):
+    """A (N, C) input on the card (the float32 ``BatchNorm1d`` at the end of
+    the backbone) takes the plain path: no launch, and the plain path's
+    result and running statistics bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(64, 512, generator=g, device=cuda) * 2 + 1
+    w, b = torch.rand(512, generator=g, device=cuda) + 0.5, torch.zeros(512, device=cuda)
+    stats = [(torch.zeros(512, device=cuda), torch.ones(512, device=cuda)) for _ in range(2)]
+    before = bn_op.batch_norm.launches
+    y = bn_op.batch_norm(x, w, b, *stats[0], 0.1, 1e-5)
+    assert bn_op.batch_norm.launches == before
+    want = bn_op.batch_norm_reference(x, w, b, *stats[1], 0.1, 1e-5)
+    assert torch.equal(y, want)
+    assert all(torch.equal(s, t) for s, t in zip(*stats))
+
+
+@pytest.mark.parametrize("backbone,b", [("ir_50", 512), ("mobilefacenet", 64)])
+def test_train_step_runs_every_bn2d_through_the_kernels(cuda, backbone, b):
+    """One train step on the card (IR-50 at the benchmark's batch of 512,
+    MobileFaceNet at 64, both in bf16 under autocast): four launches of the
+    kernels for each ``BatchNorm2d``, and in the step's trace none of
+    ATen's BN kernels in bf16. The float32 BatchNorm1d at the end (512
+    features) keeps ATen's kernels: one forward and backward, at most five
+    launches."""
+    from crfr_torch.configs import get_config
+    from crfr_torch.models import irse
+    from crfr_torch.train.loop import Trainer
+
+    cfg = get_config("casia_arcface", [f"model.backbone={backbone}", "data.num_classes=1024",
+                                       f"train.batch_size={b}"])
+    tr = Trainer(cfg, device=cuda)
+    x = _pixels((b, 112, 112, 3), torch.uint8, cuda)
+    y = torch.arange(b, device=cuda) % 1024
+    tr.train_step(x, y)
+    torch.cuda.synchronize()
+    n_bn2d = sum(isinstance(m, irse.BatchNorm2d) for m in tr.model.modules())
+    before = bn_op.batch_norm.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        m = tr.train_step(x, y)
+        torch.cuda.synchronize()
+    assert bn_op.batch_norm.launches - before == 4 * n_bn2d
+    if backbone == "ir_50":
+        assert n_bn2d == 54
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = [n for n in names if "crfr_batch_norm" in n]
+    assert len(ours) == 4 * n_bn2d, sorted(set(names))
+    aten = [n for n in names if "at::native" in n and "batch_norm" in n]
+    assert len(aten) <= 5 and not any("BFloat16" in n for n in aten), sorted(set(aten))
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
