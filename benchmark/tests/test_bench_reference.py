@@ -12,6 +12,8 @@ from benchmark.inputs import make_pool, make_weights
 from benchmark.reference import arcface, bicubic, irse
 from benchmark.reference.train import embed, train_steps
 
+from _cells import float32, of
+
 CFG = {"backbone": "ir_18", "embedding_dim": 512, "input_size": 32, "num_classes": 50}
 
 
@@ -117,20 +119,15 @@ def test_embed_equals_the_serving_function_in_float32():
                                rtol=1e-5, atol=1e-5)
 
 
-def test_three_train_steps_equal_the_trainer_in_float32(tiny_root):
+@pytest.mark.parametrize("workload", of("train"))
+def test_three_train_steps_equal_the_trainer_in_float32(tiny_root, workload):
     """The harness's train driver with the program in float32: every gap at
     rounding (the same run the chip makes, at a CPU's size)."""
-    import json
-
     from benchmark.drivers.train import Driver
     from benchmark.harness import load_cell
 
-    for f in (tiny_root / "benchmark" / "configs").iterdir():
-        c = json.loads(f.read_text())
-        c["compute_dtype"] = "float32"
-        f.write_text(json.dumps(c))
     rt = type("Rt", (), {"device": torch.device("cpu"), "rank": 0, "world": 1})()
-    d = Driver(load_cell(tiny_root, "train-ir50-casia"), 2 ** 31 + 7, rt, None)
+    d = Driver(load_cell(float32(tiny_root), workload), 2 ** 31 + 7, rt, None)
     readings, attempted, failed = d.check(3, 0)
     assert d.detail["loss_gap"] < 1e-5
     assert readings["grad_gap"] < 1e-4 and readings["grad_diff_median"] < 1e-4

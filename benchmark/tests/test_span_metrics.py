@@ -1,9 +1,10 @@
 """The readers of the program's spans (``crfr_torch.utils.profiling``'s log,
 grouped by ``benchmark.spans``): a traced CPU run of each cell at a CPU's
-size logs the spans of its segment and prints none of the four (each reads
-calls made on a card, whose spans hold CUDA events), and every earlier
-metric as before; a program without the log gives no reading and no error;
-each reader's arithmetic on a synthetic log of calls made on a card."""
+size logs the spans of its segment and prints none of the readers (each
+reads calls made on a card, whose spans hold CUDA events), and its metrics
+on the host's clock as before; a program without the log gives no reading
+and no error; each reader's arithmetic on a synthetic log of calls made on
+a card."""
 
 from __future__ import annotations
 
@@ -11,13 +12,15 @@ import json
 
 import pytest
 
-from benchmark.harness import load_module
+from benchmark.harness import ROOT, load_cell, load_module
+
+from _cells import CELLS, DRIVER
 
 SEED = 2 ** 31 + 23
-ROOT_OF = {"train-ir50-casia": "train.step", "embed-ir50-16px": "embed.call"}
-READERS = {"train-ir50-casia": ["head_ms.train", "optimizer_ms.train"],
-           "embed-ir50-16px": ["host_issue_ms.embed", "between_calls_idle_pct.embed"]}
-ALL = sorted(n for names in READERS.values() for n in names)
+ROOT_OF = {"train": "train.step", "embed": "embed.call"}   # a driver's call's span
+READERS = {w: [m["name"] for m in load_cell(ROOT, w).per_layer
+               if m["source"] == "program_span"] for w in CELLS}
+ALL = sorted({n for names in READERS.values() for n in names})
 
 
 @pytest.fixture(autouse=True)
@@ -29,7 +32,7 @@ def empty_log():
     profiling.clear()
 
 
-@pytest.mark.parametrize("workload", sorted(READERS))
+@pytest.mark.parametrize("workload", CELLS)
 def test_a_traced_cpu_run_logs_its_spans_and_prints_none_of_them(tiny_root, workload, capsys):
     from benchmark.harness import run
     from benchmark.run import parse
@@ -40,8 +43,10 @@ def test_a_traced_cpu_run_logs_its_spans_and_prints_none_of_them(tiny_root, work
     assert run(parse(argv), 0.0) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert not set(ALL) & set(out["metrics"])
-    assert {"embed_mfu_pct", "train_mfu_pct"} & set(out["metrics"])
-    cs = calls(ROOT_OF[workload])
+    host = {m["name"] for m in load_cell(tiny_root, workload).per_layer
+            if m["source"] == "host_clock"}
+    assert host and host <= set(out["metrics"])
+    cs = calls(ROOT_OF[DRIVER[workload]])
     assert len(cs) >= 3                         # the segment's calls, and only they
     assert all(c["host_ms"] > 0 and c["device_ms"] is None and c["children"] for c in cs)
 
@@ -88,7 +93,7 @@ def _log(calls: list[dict], root: str) -> list[dict]:
     return recs + [{"id": 99, "name": "train.head", "parent": -1, "device_ms": 7.0}]
 
 
-@pytest.mark.parametrize("name", ALL)
+@pytest.mark.parametrize("name", sorted(EXPECT))
 def test_each_reader_on_a_synthetic_log(name, monkeypatch):
     from crfr_torch.utils import profiling
 
