@@ -3,11 +3,13 @@ no profiler and under a device-only one, whether their log sits on the
 trace's clock, whether a train step's children add up to it, and where the
 device idles, by span.
 
-    python -m crfr_torch.bench.spans_check --path train|embed [--calls N] [--reps R] [--out FILE]
+    python -m crfr_torch.bench.spans_check --path train|embed [--calls N] [--reps R]
+        [--classes C] [--out FILE]
 
 ``train``: the casia_arcface preset's step (``bench.throughput.
-train_config``, IR-50, 10,572 classes) at batch 512 on a pool of 4
-device-resident batches with a low per image in 8..112. ``embed``:
+train_config``, IR-50, 10,572 classes, or ``--classes``: over 32,768 the
+CE streams in blocks) at batch 512 on a pool of 4 device-resident batches
+with a low per image in 8..112. ``embed``:
 ``serve.build_serving_fn`` over the same IR-50 (bf16), 256 probes degraded
 112→16→112, on a pool of 4 batches. Windows of N calls, fenced; one JSON
 line, with the card:
@@ -28,7 +30,8 @@ line, with the card:
   the device waited for; ``xprof_check._span_groups``), and for ``train``
   the ``clock``: the ``multi_tensor_apply`` kernels (the optimizer's foreach
   norms and update) whose runtime launch lies inside a ``train.optimizer``
-  span;
+  span, and ``head``: the ``train.head`` spans' counts, and whether each
+  holds (``head_counts_hold``);
 - ``windows``: ms a call of R × (on, off, off, on) windows under one
   device-only profiler, the spans in their default mode or ``"off"``
   (``profiling.span_mode``); ``on_cost_pct`` from their medians;
@@ -142,6 +145,27 @@ def _by_span(path: str, calls: int) -> dict:
                       "share": inside / len(opt) if opt else None}}
 
 
+def head_counts_hold(counts: dict | None) -> bool:
+    """A ``train.head`` span's counts are whole and agree: the streamed CE's
+    ``blocks`` of ``block`` cover its ``classes`` and one block fewer would
+    not; a dense or sharded CE is one block of at least its classes."""
+    if not counts or set(counts) != {"path", "classes", "blocks", "block"}:
+        return False
+    n, b, c = counts["blocks"], counts["block"], counts["classes"]
+    if counts["path"] == "streaming":
+        return n * b >= c > (n - 1) * b
+    return counts["path"] in ("dense", "sharded") and n == 1 and b >= c
+
+
+def _head(calls: int) -> dict:
+    """The counts of the log's ``train.head`` spans: the distinct ones, and
+    whether all ``calls`` spans carry counts that hold."""
+    counts = [r["counts"] for r in profiling.spans() if r["name"] == "train.head"]
+    seen = [c for i, c in enumerate(counts) if c not in counts[:i]]
+    return {"counts": seen, "spans": len(counts),
+            "hold": len(counts) == calls and all(head_counts_hold(c) for c in counts)}
+
+
 def _median(xs: list) -> float:
     xs = sorted(xs)
     return (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2]) / 2
@@ -157,6 +181,8 @@ def _study(kind: str, call, n: int, reps: int, tmp: str) -> dict:
     profiling.clear()
     first_ms = _traced(call, n, path)
     first = {"ms": first_ms, "spans": _means(n), **_by_span(path, n)}
+    if kind == "train":
+        first["head"] = _head(n)
     # one profiler over windows with the spans on and off in turns
     profiling.clear()
     windows = {"on": [], "off": []}
@@ -192,6 +218,7 @@ def main(argv=None) -> int:
     ap.add_argument("--calls", type=int, default=None,
                     help="calls a window (train 10, embed 40)")
     ap.add_argument("--reps", type=int, default=3, help="on, off, off, on, this many times")
+    ap.add_argument("--classes", type=int, default=10572, help="the train step's classes")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -200,11 +227,11 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     off = span_ns()
-    tr = Trainer(train_config("ir_50", 10572, 112, 512), device=dev)
+    tr = Trainer(train_config("ir_50", args.classes, 112, 512), device=dev)
     g = torch.Generator(device=dev).manual_seed(0)
     pool = [(torch.randint(0, 256, (512, 112, 112, 3), generator=g, device=dev,
                            dtype=torch.uint8),
-             torch.randint(0, 10572, (512,), generator=g, device=dev),
+             torch.randint(0, args.classes, (512,), generator=g, device=dev),
              torch.randint(8, 113, (512,), generator=g, device=dev, dtype=torch.int32))
             for _ in range(4)]
     k = [0]

@@ -262,6 +262,7 @@ class Trainer:
         elif impl not in ("dense", "streaming"):
             raise ValueError(f"unknown ce_impl {cfg.loss.ce_impl!r}")
         self._ce_impl = impl
+        self._head_counts = self._count_head()
 
         dc = cfg.data
         hi = min(dc.degrade_max, dc.image_size)
@@ -396,6 +397,20 @@ class Trainer:
         return fused_degrade_normalize(x.contiguous(), low, self.cfg.data.resize_mode,
                                        self.compute_dtype, lows=(lo, hi))
 
+    def _count_head(self) -> dict:
+        """What the CE of a step runs over, for the ``train.head`` span:
+        ``path`` (dense, streaming or sharded), ``classes`` (this rank's
+        columns of W less the padding), ``blocks`` (the class blocks a
+        forward takes, 1 but for streaming) and ``block`` (their width)."""
+        head = self.model.head
+        width = head.weight.shape[1]
+        valid = head.num_valid if head.num_valid is not None else width * self._w_shard.parts
+        lo = self._w_shard.index * width
+        classes = min(max(valid - lo, 0), width)
+        block = self.cfg.loss.ce_block if self._ce_impl == "streaming" else width
+        return {"path": self._ce_impl, "classes": classes, "blocks": -(-width // block),
+                "block": block}
+
     def _loss(self, emb: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """The CE of this rank's rows: the mean over them, or on a mesh this
         rank's share of the global mean."""
@@ -446,7 +461,8 @@ class Trainer:
         ``train.backbone``, ``train.head``, ``train.head_backward``,
         ``train.backward`` and ``train.optimizer`` (``utils.profiling``);
         the head's two and the optimizer's are device-timed, the others are
-        ``detail`` spans."""
+        ``detail`` spans. ``train.head`` carries the CE's counts
+        (``_count_head``)."""
         rows = len(labels) if local else len(labels) // self.world
         with annotate("train.step", self.device, call=self.host_step, rows=rows, detail=True):
             return self._step(images, labels, lows, local)
@@ -469,7 +485,7 @@ class Trainer:
                 self.device.type, dtype=torch.bfloat16,
                 enabled=self.compute_dtype == torch.bfloat16):
             emb = self.model.backbone(x, generator=gen)
-        with annotate("train.head", self.device):
+        with annotate("train.head", self.device, counts=self._head_counts):
             ce = self._loss(emb, y)
         terms = self._extra_terms(raw, x, emb, t)
         if self.world > 1:              # each rank's share of the global mean

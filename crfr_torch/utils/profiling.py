@@ -4,9 +4,10 @@
   CPU and, where there is a card, the CUDA activities; on exit it writes a
   Chrome trace (``trace_<pid>_<ns>.json``, viewable in Perfetto or
   ``chrome://tracing``) into ``logdir``, with every kernel the block ran;
-- ``annotate(name, device, call=, rows=, detail=)``: the program's span, a
-  named range at a layer boundary (below); ``begin``/``end`` the same for a
-  span that may end on another thread than the one that opened it;
+- ``annotate(name, device, call=, rows=, detail=, counts=)``: the program's
+  span, a named range at a layer boundary (below); ``begin``/``end`` the
+  same for a span that may end on another thread than the one that opened
+  it;
 - ``span_mode(mode)``: which spans record what while a profiler runs;
 - ``spans()``, ``span_events(base_ns)``, ``clear()``: the span log, read;
 - ``union_length(intervals)``: the length of a union of intervals;
@@ -24,7 +25,9 @@ bounded log (``LOG_BOUND`` records; the oldest go first): its name, its
 parent (the enclosing span on the opening thread, or the one given to
 ``begin``), a call id (the root's ``call``, or a count; children inherit
 it), the rows the call handled (``rows``, inherited likewise), the opening
-thread, and its start and end on ``time.time_ns()``. A span given a CUDA
+thread, its start and end on ``time.time_ns()``, and the ``counts`` it was
+given (a dict of what the span's work is made of, such as the head's path,
+classes and class blocks; never read by the span itself). A span given a CUDA
 ``device`` also records a pair of ``torch.cuda.Event(enable_timing=True)``
 on that device's current stream at its edges, taken from a pool, with no
 synchronize; on the CPU it records none. A ``detail`` span records its
@@ -43,7 +46,7 @@ against an origin event recorded with the log's first device-timed span,
 after one fence of the device) and returns each finished record as a dict:
 ``host_ms`` and ``self_ms`` (the span less the union of its children), and
 ``device_start_ms``/``device_end_ms`` from the origin, ``device_ms`` and
-``device_self_ms`` (None without events).
+``device_self_ms`` (None without events), and ``counts`` (None without).
 """
 
 from __future__ import annotations
@@ -83,7 +86,7 @@ def trace(logdir: str):
 
 class _Record:
     __slots__ = ("id", "name", "parent", "call", "rows", "thread", "start_ns", "end_ns",
-                 "device", "events", "device_ms", "range")
+                 "device", "events", "device_ms", "range", "counts")
 
 
 class SpanLog:
@@ -122,6 +125,7 @@ class SpanLog:
         rec.call = call if call is not None else (parent.call if parent else None)
         rec.rows = rows if rows is not None else (parent.rows if parent else None)
         rec.end_ns, rec.device, rec.events, rec.device_ms = None, None, None, None
+        rec.counts = None
         with self._lock:
             if rec.call is None:
                 rec.call = next(self._calls)
@@ -183,7 +187,7 @@ class SpanLog:
                  "start_ns": r.start_ns, "end_ns": r.end_ns, "host_ms": host_ns / 1e6,
                  "self_ms": (host_ns - union_length([(c.start_ns, c.end_ns) for c in ch])) / 1e6,
                  "device_start_ms": None, "device_end_ms": None, "device_ms": None,
-                 "device_self_ms": None}
+                 "device_self_ms": None, "counts": r.counts}
             if r.device_ms is not None:
                 s, e = r.device_ms
                 d.update(device_start_ms=s, device_end_ms=e, device_ms=e - s,
@@ -208,14 +212,15 @@ LOG = SpanLog()
 
 
 class _Span:
-    __slots__ = ("args", "rec")
+    __slots__ = ("args", "counts", "rec")
 
-    def __init__(self, *args):
-        self.args = args
+    def __init__(self, *args, counts=None):
+        self.args, self.counts = args, counts
 
     def __enter__(self):
         st = LOG._stack()
         self.rec = LOG.open(*self.args, st[-1] if st else None)
+        self.rec.counts = self.counts
         st.append(self.rec)
         return self.rec
 
@@ -225,15 +230,18 @@ class _Span:
         return False
 
 
-def annotate(name: str, device=None, call=None, rows=None, detail: bool = False):
+def annotate(name: str, device=None, call=None, rows=None, detail: bool = False,
+             counts: dict | None = None):
     """The span ``name`` over a ``with`` block: the shared null context while
     no profiler runs (or in the ``"off"`` mode); else a range in the trace
     and a record in the log, device-timed on a CUDA ``device`` (a ``detail``
     span only in the ``"all"`` mode). ``call`` and ``rows`` name the call a
-    root span belongs to and the rows it handled."""
+    root span belongs to and the rows it handled; ``counts`` goes on the
+    record as it is (pass one made ahead: the off path builds nothing)."""
     if not _gate._is_profiler_enabled or torch.compiler.is_compiling() or _mode == "off":
         return _NULL
-    return _Span(name, None if detail and _mode != "all" else device, call, rows)
+    return _Span(name, None if detail and _mode != "all" else device, call, rows,
+                 counts=counts)
 
 
 def begin(name: str, device=None, parent=None, detail: bool = False):
@@ -282,7 +290,7 @@ def span_events(base_ns: int) -> list[dict]:
     pid = os.getpid()
     return [{"name": r["name"], "cat": "crfr_span", "ph": "X", "pid": pid, "tid": r["thread"],
              "ts": (r["start_ns"] - base_ns) / 1e3, "dur": (r["end_ns"] - r["start_ns"]) / 1e3,
-             "args": {k: r[k] for k in ("id", "parent", "call", "rows", "device_ms")}}
+             "args": {k: r[k] for k in ("id", "parent", "call", "rows", "device_ms", "counts")}}
             for r in spans()]
 
 

@@ -22,7 +22,10 @@ BatchNorm (``ops.batch_norm``) against its plain path on the CPU at each
 of IR-50's BN shapes in bf16 and float32 and at B=512's stage-1 shape, bit
 for bit from call to call and under a remat recomputation (statistics
 left), and the IR-50 and MobileFaceNet train steps with every BatchNorm2d
-through its four kernels.
+through its four kernels. The streamed margin CE through ``Trainer._loss``
+at the train-ir100-ms1m cell's widths (B=512, D=512, 85,742 classes in
+blocks of 8,192) against the benchmark's plain reference, and the same
+with TF32 in the program's products failing that comparison.
 
 These tests need a CUDA device and skip without one. The file imports
 neither JAX nor crfr, so it also runs where only PyTorch is installed:
@@ -1110,3 +1113,76 @@ def test_train_step_runs_every_bn2d_through_the_kernels(cuda, backbone, b):
     aten = [n for n in names if "at::native" in n and "batch_norm" in n]
     assert len(aten) <= 5 and not any("BFloat16" in n for n in aten), sorted(set(aten))
     assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+
+
+# The streamed head at the train-ir100-ms1m cell's widths. Loss: rtol 1e-5.
+# Gradients of the embeddings and of W: rtol 1e-5 with an atol of 1e-5 of
+# the tensor's largest entry, as on the CPU (tests/test_torch_streaming_head.py):
+# an entry near 0 is a difference of near-equal terms and keeps their
+# rounding. Program and reference are float32 with TF32 off; cuBLAS may take
+# other kernels for their products, which moves a logit by float32 rounding
+# (~1e-7 of it) and no more.
+HEAD_RTOL = 1e-5
+
+
+def _streamed_head(device, classes=85742, b=512, seed=0):
+    """Loss and gradients of ``Trainer._loss`` on the streaming path (the
+    ms1m_ijbc preset on one card) and of the plain reference."""
+    from benchmark.reference.arcface import arcface_ce
+    from crfr_torch.configs import get_config
+    from crfr_torch.train.loop import Trainer
+
+    cfg = get_config("ms1m_ijbc", ["mesh.data=1", "mesh.model=1", f"train.batch_size={b}",
+                                   f"data.num_classes={classes}", "model.backbone=ir_18"])
+    tr = Trainer(cfg, device=device)
+    assert tr._ce_impl == "streaming" and cfg.loss.ce_block == 8192
+    g = torch.Generator(device=device).manual_seed(seed)
+    emb = torch.randn(b, 512, generator=g, device=device)
+    y = torch.randint(0, classes, (b,), generator=g, device=device)
+    w = tr.model.head.weight
+    e = emb.clone().requires_grad_(True)
+    loss = tr._loss(e, y)
+    loss.backward()
+    got = (loss.detach(), e.grad, w.grad)
+    with strict_fp32():
+        e2 = emb.clone().requires_grad_(True)
+        w2 = w.detach().clone().requires_grad_(True)
+        ref = arcface_ce(e2, w2, y, s=cfg.loss.scale, m=cfg.loss.margin)
+        want = (ref.detach(), *torch.autograd.grad(ref, [e2, w2]))
+    return got, want
+
+
+def _head_excess(got, want) -> list[float]:
+    """Each tensor's largest |a - b| over its tolerance (over 1 fails)."""
+    return [float(((a - b).abs() / (HEAD_RTOL * (b.abs() + (b.abs().max() if a.dim() else 0))))
+                  .max()) for a, b in zip(got, want)]
+
+
+def test_streamed_head_matches_the_reference_at_the_cells_widths(cuda):
+    got, want = _streamed_head(cuda)
+    excess = _head_excess(got, want)
+    print("streamed head, excess over the tolerance (loss, emb grad, W grad):", excess)
+    assert max(excess) <= 1.0, excess
+
+
+def test_streamed_head_with_tf32_fails_the_comparison(cuda, monkeypatch):
+    """The control: the program's products in TF32 (10 mantissa bits)."""
+    import contextlib
+
+    from crfr_torch.losses import arcface
+
+    @contextlib.contextmanager
+    def tf32(device):
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with torch.autocast(device.type, enabled=False):
+                yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+
+    monkeypatch.setattr(arcface, "true_f32", tf32)
+    got, want = _streamed_head(cuda)
+    excess = _head_excess(got, want)
+    print("streamed head in TF32, excess over the tolerance:", excess)
+    assert max(excess) > 1.0, excess

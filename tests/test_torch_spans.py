@@ -4,10 +4,11 @@ is the shared null context and reads no clock, opens no range and logs
 nothing; on, under a CPU profiler, one train step logs ``train.step`` over
 its children and one serving call ``embed.call`` over its own, each child
 inside its parent and on the trace's clock; the numbers are bit-equal with
-a profiler on and off; the log keeps its bound; ``span_mode`` sends spans
-down the off path or times a ``detail`` span on the device; the int8
-conv's kernels are still grouped by its ranges, and nested spans by the
-innermost one (``bench.xprof_check``)."""
+a profiler on and off, the streamed CE's too; the log keeps its bound;
+``span_mode`` sends spans down the off path or times a ``detail`` span on
+the device; ``train.head`` carries the CE's counts on the dense and the
+streamed paths; the int8 conv's kernels are still grouped by its ranges,
+and nested spans by the innermost one (``bench.xprof_check``)."""
 
 import _torch_threads  # noqa: F401 (first: caps torch's threads per worker)
 import json
@@ -29,12 +30,15 @@ ROOTS = {"train": ("train.step", TRAIN_CHILDREN), "embed": ("embed.call", EMBED_
 SLACK_NS = 200_000
 
 
-def tiny_trainer() -> Trainer:
+def tiny_trainer(streamed: bool = False) -> Trainer:
+    """The 4 classes in one dense product, or ``streamed`` in blocks of 3
+    (the last block partial)."""
+    head = {"ce_block": 3, "ce_streaming_threshold": 2} if streamed else {}
     cfg = Config(
         name="tiny-test", mesh=MeshCfg(data=1, model=1),
         data=DataCfg(image_size=32, num_classes=4, degrade_min=16, degrade_max=32),
         model=ModelCfg(backbone="ir_18", compute_dtype="float32", dropout=0.0, input_size=32),
-        loss=LossCfg(scale=16.0, margin=0.2),
+        loss=LossCfg(scale=16.0, margin=0.2, **head),
         train=TrainCfg(batch_size=16, lr=0.05, warmup_steps=5, weight_decay=5e-4,
                        log_every=10, seed=0))
     return Trainer(cfg, steps_per_epoch=100, device="cpu")
@@ -47,17 +51,18 @@ def batch(seed: int = 0):
 
 
 class Case:
-    """A trainer and its serving callable; ``run(kind)`` makes one call."""
+    """A trainer and its serving callable; ``run(kind)`` makes one call
+    (``streamed``: a train step of a trainer whose CE streams)."""
 
-    def __init__(self):
-        self.tr = tiny_trainer()
+    def __init__(self, streamed: bool = False):
+        self.tr = tiny_trainer(streamed)
         self.images, self.labels, self.lows = batch()
         self.fn = build_serving_fn(lambda x: self.tr.backbone_apply(self.tr.model.backbone, x),
                                    degrade_to=16, image_size=32, device="cpu")
         self.tr.train_step(self.images, self.labels, lows=self.lows)   # warm, outside any trace
 
     def run(self, kind: str):
-        if kind == "train":
+        if kind in ("train", "streamed"):
             m = self.tr.train_step(self.images, self.labels, lows=self.lows)
             return [m["loss"], m["grad_norm"],
                     *[p.grad for p in self.tr.model.parameters() if p.grad is not None],
@@ -110,6 +115,7 @@ def test_off_a_span_is_the_null_context_and_does_nothing(case, kind, monkeypatch
     monkeypatch.setattr(profiling, "record_function", _no_range)
     monkeypatch.setattr(torch.cuda, "Event", _no_range)
     assert profiling.annotate("x", torch.device("cpu"), call=1, rows=2) is profiling._NULL
+    assert profiling.annotate("x", counts={"blocks": 1}) is profiling._NULL
     assert profiling.annotate("y") is profiling.annotate("z")
     assert profiling.begin("x") is None
     profiling.end(None)
@@ -140,24 +146,38 @@ def test_on_the_call_logs_its_root_over_its_children(case, kind, tmp_path):
 
 @pytest.mark.parametrize("kind", ["train", "embed"])
 def test_the_log_is_on_the_traces_clock(case, kind, tmp_path):
+    """Each span lies inside a range of its name in the trace, within
+    ``SLACK_NS`` (the profiler maps its own clock onto the unix clock; on an
+    8-core host beside six busy processes spans open 3.6 µs or more inside
+    their ranges). Every range of the name is a candidate: a trace may hold
+    more than one range of a name, and the one the span opened need not be
+    the last."""
     _, trace = traced(case, kind, tmp_path / "t.json")
     base = trace["baseTimeNanoseconds"]
-    ranges = {e["name"]: e for e in trace["traceEvents"] if e.get("cat") == "user_annotation"}
+    ranges: dict[str, list] = {}
+    for e in trace["traceEvents"]:
+        if e.get("cat") == "user_annotation":
+            ranges.setdefault(e["name"], []).append(
+                (e["ts"] * 1000 + base, (e["ts"] + e["dur"]) * 1000 + base))
     events = profiling.span_events(base)
     for rec, ev in zip(profiling.spans(), events):
-        r = ranges[rec["name"]]
-        lo, hi = r["ts"] * 1000 + base, (r["ts"] + r["dur"]) * 1000 + base
-        assert lo - SLACK_NS <= rec["start_ns"] <= rec["end_ns"] <= hi + SLACK_NS, rec["name"]
+        edges = ranges[rec["name"]]
+        assert any(lo - SLACK_NS <= rec["start_ns"] <= rec["end_ns"] <= hi + SLACK_NS
+                   for lo, hi in edges), (rec["name"], rec["start_ns"], rec["end_ns"], edges)
         assert ev["cat"] == "crfr_span" and ev["ph"] == "X" and ev["name"] == rec["name"]
         assert ev["ts"] * 1000 + base == pytest.approx(rec["start_ns"], abs=1)
         assert ev["dur"] * 1000 == pytest.approx(rec["end_ns"] - rec["start_ns"], abs=1)
     assert len(events) == len(ROOTS[kind][1]) + 1
 
 
-@pytest.mark.parametrize("kind", ["train", "embed"])
+@pytest.mark.parametrize("kind", ["train", "embed", "streamed"])
 def test_numbers_are_bit_equal_with_the_profiler_on_and_off(kind, tmp_path):
-    off = Case().run(kind)
-    on, _ = traced(Case(), kind, tmp_path / "t.json")
+    streamed = kind == "streamed"
+    off = Case(streamed).run(kind)
+    on, _ = traced(Case(streamed), kind, tmp_path / "t.json")
+    if kind != "embed":                 # the trainer's CE took the path the case names
+        (head,) = [r for r in profiling.spans() if r["name"] == "train.head"]
+        assert head["counts"]["path"] == ("streaming" if streamed else "dense")
     assert len(on) == len(off)
     for a, b in zip(on, off):
         assert torch.equal(a, b)
@@ -249,3 +269,40 @@ def test_nested_spans_group_a_launch_by_the_innermost():
     kernels = [{"args": {"correlation": t}} for t in at]
     assert _span_groups(events, kernels, {n: n for n, _, _ in spans}, cat="crfr_span") == \
         ["step", "head", "step", "optimizer", "step", None, "other"]
+
+
+@pytest.mark.parametrize("streamed,counts", [
+    (False, {"path": "dense", "classes": 4, "blocks": 1, "block": 4}),
+    (True, {"path": "streaming", "classes": 4, "blocks": 2, "block": 3}),
+])
+def test_the_head_span_carries_the_ces_counts(streamed, counts, tmp_path):
+    """Under a profiler ``train.head`` carries the CE's path, this rank's
+    classes, the class blocks and their width, which hold together
+    (``bench.spans_check.head_counts_hold``); no other span carries any."""
+    from crfr_torch.bench.spans_check import head_counts_hold
+
+    traced(Case(streamed), "train", tmp_path / "t.json")
+    (root,) = roots("train.step")
+    head = root["children"]["train.head"]
+    assert head["counts"] == counts and head["rows"] == 16
+    assert head_counts_hold(head["counts"])
+    assert [r["name"] for r in profiling.spans() if r["counts"] is not None] == ["train.head"]
+    for bad in ({**counts, "blocks": counts["blocks"] + 1}, {**counts, "block": 1},
+                {k: v for k, v in counts.items() if k != "path"}, None):
+        assert not head_counts_hold(bad), bad
+
+
+def test_a_sharded_heads_counts_leave_out_the_padding():
+    """On a model axis of 2, 5 classes padded to 6 (3 a rank): rank 0 holds 3
+    classes, rank 1 2 and a padding column."""
+    from crfr_torch.parallel.mesh import Sharding
+
+    tr = tiny_trainer()
+    tr._ce_impl = "sharded"
+    tr.model.head.weight = torch.nn.Parameter(torch.zeros(512, 3))
+    tr.model.head.num_valid = 5
+    got = []
+    for index in (0, 1):
+        tr._w_shard = Sharding(2, index, 1)
+        got.append(tr._count_head())
+    assert got == [{"path": "sharded", "classes": c, "blocks": 1, "block": 3} for c in (3, 2)]
